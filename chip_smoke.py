@@ -3,15 +3,24 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from gpe_tpu_torch/csrc with nvcc, holds each kernel
-against its plain PyTorch version at the shapes of the `gpe2d_ground_state`
-main path (50,176 points, [2,128,128,128,1] shifted_tanh MLP), times kernel,
-plain version and a nested-autograd PyTorch expression of the same function
-with CUDA events, then drives the port's main path — `train_plpinn` through
-the registered config with a shortened schedule — plus a short exact-mode
-fit, and checks μ against the exact linear eigenvalue. Any failure exits
-non-zero. Output: the card's name and power limit, one {"kernels": [...]}
-line, and a last line {"ok": true, "device": {...}}.
+Builds the CUDA kernels from gpe_tpu_torch/csrc with nvcc and drives the
+port's two paths on the card:
+
+1. the 2D main path, `gpe2d_ground_state` (50,176 points, [2,128,128,128,1]
+   shifted_tanh MLP): K1 and K2 held against their plain PyTorch versions
+   and timed (kernel, plain version, a nested-autograd PyTorch expression of
+   the same function, CUDA events), then `train_plpinn` through the
+   registered config with a shortened schedule plus short relaxed and exact
+   fits, μ checked against the exact linear eigenvalue;
+2. the packed-ensemble path, `harmonic_paper` (4,000 points, six runs of
+   [1,64,64,64,1], modes 0–5): the run-mode K1 and K2 (K3) held against
+   their plain versions and against six single-run launches, timed the same
+   way, then `train_plpinn_modes_packed` over all six modes with a shortened
+   schedule, μ(γ=0) checked against 2n+1.
+
+Each path's launch counters are set to 0 just before it and read just
+after. Any failure exits non-zero. Output: the card's name and power limit,
+one {"kernels": [...]} line, and a last line {"ok": true, "device": {...}}.
 
 Needs a CUDA device; it imports nothing of JAX or of the gpe_tpu package.
 """
@@ -72,27 +81,29 @@ def matmul_flops(layers, n: int, grad: bool) -> float:
     return float(per_pt) * n
 
 
-def io_bytes(layers, n: int, grad: bool) -> float:
+def io_bytes(layers, n: int, grad: bool, runs: int = 1) -> float:
     """Bytes each input read once and each output written once: x (n·d),
-    V, w, base value and Laplacian (n each), the parameters, the 4 sums and,
-    for K2, the gradient (as large as the parameters)."""
+    V, w (n each), each run's base value and Laplacian (n each), parameters
+    and 4 sums and, for K2, its gradient (as large as its parameters)."""
     n_params = sum(k * m + m for k, m in zip(layers[:-1], layers[1:]))
-    b = 4 * (n * layers[0] + 4 * n + n_params + 4)
-    return float(b + (4 * n_params if grad else 0))
+    b = 4 * (n * layers[0] + 2 * n + runs * (2 * n + n_params + 4))
+    return float(b + (4 * runs * n_params if grad else 0))
 
 
-def bound(layers, n: int, grad: bool):
-    t_ops = matmul_flops(layers, n, grad) / PEAK_F32_FLOPS * 1e3
-    t_mem = io_bytes(layers, n, grad) / PEAK_HBM_BYTES * 1e3
+def bound(layers, n: int, grad: bool, runs: int = 1):
+    t_ops = runs * matmul_flops(layers, n, grad) / PEAK_F32_FLOPS * 1e3
+    t_mem = io_bytes(layers, n, grad, runs) / PEAK_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
 
-def nested_autograd_sums(params, batch, gamma, scale, activation, p, kinetic):
+def nested_autograd_sums(params, batch, gamma, scale, activation, p, kinetic,
+                         nonlinearity):
     """The four sums by the reference's route: the Laplacian from nested
     reverse-mode autograd (create_graph) instead of the forward-Laplacian
     recursion. The yardstick `library_ms`; the port never calls it."""
     import torch
     from gpe_tpu_torch.models.mlp import mlp_apply
+    from gpe_tpu_torch.ops.rayleigh import nonlinear_term
 
     x = batch["x"].detach().requires_grad_(True)
     net = mlp_apply(params, x, activation)
@@ -101,7 +112,7 @@ def nested_autograd_sums(params, batch, gamma, scale, activation, p, kinetic):
               for i in range(x.shape[1]))
     u = batch["base_val"] + scale * net
     lp = batch["base_lap"] + scale * lap
-    hu = -kinetic * lp + batch["V"] * u + gamma * torch.abs(u) ** (p - 1) * u
+    hu = -kinetic * lp + batch["V"] * u + nonlinear_term(u, gamma, p, nonlinearity)
     w = batch["w"]
     return torch.stack([torch.sum(hu * hu), torch.sum(u * hu), torch.sum(u * u),
                         torch.sum(u * u * w)])
@@ -164,7 +175,7 @@ def phase_k1(spec, batch, params):
         worst_rel = max(worst_rel, rel)
     gamma, scale = 5.0, 0.05
     nested = nested_autograd_sums(params, batch, gamma, scale, spec.activation,
-                                  spec.p, spec.kinetic)
+                                  spec.p, spec.kinetic, spec.nonlinearity)
     plain = k1.collocation_sums_plain(params, *args, gamma, scale, *base, **kw)
     log(f"K1 nested-autograd sums vs plain: max rel "
         f"{float(((nested.detach() - plain).abs() / plain.abs()).max()):.2e}")
@@ -173,7 +184,8 @@ def phase_k1(spec, batch, params):
                                                          *base, **kw), 10)
     lib_ms = time_ms(lambda: nested_autograd_sums(params, batch, gamma, scale,
                                                   spec.activation, spec.p,
-                                                  spec.kinetic), 5)
+                                                  spec.kinetic,
+                                                  spec.nonlinearity), 5)
     n = batch["x"].shape[0]
     b_ms, b_by = bound(spec.layers, n, grad=False)
     log(f"K1 timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, nested autograd "
@@ -187,13 +199,16 @@ def phase_k1(spec, batch, params):
 
 
 def _grad_err(got, want):
-    """(max abs error, max over leaves of max|Δ| / max|want|)."""
+    """(max abs error, max over leaves — and over runs, for run-stacked
+    grads — of max|Δ| / max|want|)."""
     worst_abs, worst_norm = 0.0, 0.0
     for (gw, gb), (ww, wb) in zip(got, want):
+        rows = gw.shape[0] if gw.ndim == 3 else 1      # run-stacked: W (R, in, out)
         for a, b in ((gw, ww), (gb, wb)):
-            d = float((a - b).abs().max())
-            worst_abs = max(worst_abs, d)
-            worst_norm = max(worst_norm, d / (float(b.abs().max()) + 1e-30))
+            d = (a - b).abs().reshape(rows, -1).amax(dim=1)
+            m = b.abs().reshape(rows, -1).amax(dim=1) + 1e-30
+            worst_abs = max(worst_abs, float(d.max()))
+            worst_norm = max(worst_norm, float((d / m).max()))
     return worst_abs, worst_norm
 
 
@@ -236,7 +251,7 @@ def phase_k2(spec, batch, params):
 
     def library():
         s = nested_autograd_sums(pairs, batch, gamma, scale, spec.activation,
-                                 spec.p, spec.kinetic)
+                                 spec.p, spec.kinetic, spec.nonlinearity)
         return torch.autograd.grad(torch.sum(cots * s), leaves)
 
     ms = time_ms(lambda: k2.collocation_grads(params, *args, gamma, scale, cots,
@@ -323,6 +338,238 @@ def phase_main_path(cfg, dev):
     return launches, steps
 
 
+def runs_shape(dev):
+    """The packed path's K3 inputs at full size: `harmonic_paper`'s 4,000
+    points, one run per mode 0–5 of [1,64,64,64,1] from seeded generators,
+    per-run γ, scale and Hermite bases."""
+    import torch
+    from gpe_tpu_torch.experiments.configs import EXPERIMENTS
+    from gpe_tpu_torch.models.mlp import init_mlp, stack_runs
+    from gpe_tpu_torch.train.problem import make_batch
+
+    cfg = EXPERIMENTS["harmonic_paper"]
+    spec, modes = cfg.spec, cfg.modes
+    R = len(modes)
+    batch = make_batch(spec, modes[0], device=dev)
+    per_mode = [make_batch(spec, m, device=dev) for m in modes]
+    for k in ("base_val", "base_lap", "base_bval"):
+        batch[k] = torch.stack([b[k] for b in per_mode]).contiguous()
+    params = stack_runs([init_mlp(spec.layers, "xavier_uniform",
+                                  generator=torch.Generator().manual_seed(100 + r),
+                                  device=dev) for r in range(R)])
+    gammas = torch.tensor([0.0, 0.5, 1.0, 2.0, 5.0, 10.0][:R], device=dev)
+    scales = torch.tensor([0.01 * (1 + r) for r in range(R)], device=dev)
+    return cfg, spec, batch, params, gammas, scales
+
+
+def _nested_runs(params, batch, gammas, scales, spec):
+    """The library yardstick of the run mode: nested autograd, run by run."""
+    import torch
+    from gpe_tpu_torch.models.mlp import run_slice
+
+    out = []
+    for r in range(scales.shape[0]):
+        b = {"x": batch["x"], "V": batch["V"], "w": batch["w"],
+             "base_val": batch["base_val"][r], "base_lap": batch["base_lap"][r]}
+        out.append(nested_autograd_sums(run_slice(params, r), b, gammas[r],
+                                        scales[r], spec.activation, spec.p,
+                                        spec.kinetic, spec.nonlinearity))
+    return torch.stack(out)
+
+
+def phase_k3_sums(spec, batch, params, gammas, scales):
+    """Run-mode K1 (K3) against its plain version and six single-run K1
+    launches, timed."""
+    import torch
+    from gpe_tpu_torch.kernels import fused_residual as k1
+    from gpe_tpu_torch.models.mlp import run_slice
+
+    kw = dict(activation=spec.activation, p=spec.p, kinetic=spec.kinetic,
+              nonlinearity=spec.nonlinearity)
+    args = (batch["x"], batch["V"], batch["w"], gammas, scales,
+            batch["base_val"], batch["base_lap"])
+    R = scales.shape[0]
+    got = k1.collocation_sums_runs(params, *args, **kw)
+    want = k1.collocation_sums_runs_plain(params, *args, **kw)
+    singles = torch.stack([k1.collocation_sums(
+        run_slice(params, r), batch["x"], batch["V"], batch["w"], gammas[r],
+        scales[r], batch["base_val"][r], batch["base_lap"][r], **kw)
+        for r in range(R)])
+    torch.cuda.synchronize()
+    ab = (got - want).abs()
+    rel = float((ab / want.abs()).max())
+    rel_single = float(((got - singles).abs() / singles.abs()).max())
+    bit_equal = bool(torch.equal(got, singles))
+    log(f"K3 sums ({R} runs): kernel {got.tolist()}")
+    log(f"K3 sums vs plain max rel {rel:.2e}; vs {R} single-run K1 launches max "
+        f"rel {rel_single:.2e}, bit-equal {bit_equal}")
+    if not torch.isfinite(got).all() or rel > K1_TOL or rel_single > K1_TOL:
+        raise AssertionError(f"run-mode K1 disagrees: plain {rel:.3e}, "
+                             f"single runs {rel_single:.3e}")
+    ms = time_ms(lambda: k1.collocation_sums_runs(params, *args, **kw), 50)
+    singles_ms = time_ms(lambda: [k1.collocation_sums(
+        run_slice(params, r), batch["x"], batch["V"], batch["w"], gammas[r],
+        scales[r], batch["base_val"][r], batch["base_lap"][r], **kw)
+        for r in range(R)], 20)
+    plain_ms = time_ms(lambda: k1.collocation_sums_runs_plain(params, *args, **kw), 10)
+    lib_ms = time_ms(lambda: _nested_runs(params, batch, gammas, scales, spec), 5)
+    n = batch["x"].shape[0]
+    b_ms, b_by = bound(spec.layers, n, grad=False, runs=R)
+    log(f"K3 sums timing: kernel {ms:.4f} ms, {R} single-run K1 launches "
+        f"{singles_ms:.4f} ms, plain {plain_ms:.4f} ms, nested autograd "
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return {"name": "fused_residual_runs", "route": "cuda",
+            "source": "gpe_tpu_torch/csrc/fused_residual.cu",
+            "replaces": "gpe_tpu/pallas/fused_residual.py:246",
+            "max_abs_err": float(ab.max()), "max_rel_err": rel,
+            "bit_equal_to_single_runs": bit_equal, "ms": ms,
+            "single_runs_ms": singles_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms}
+
+
+def phase_k3_grads(spec, batch, params, gammas, scales):
+    """Run-mode K2 (K3), exact and delayed cotangents, against its plain
+    version and six single-run K2 launches, timed."""
+    import torch
+    from gpe_tpu_torch.kernels import fused_grad as k2
+    from gpe_tpu_torch.kernels import fused_residual as k1
+    from gpe_tpu_torch.models.mlp import run_slice
+
+    kw = dict(activation=spec.activation, p=spec.p, kinetic=spec.kinetic,
+              nonlinearity=spec.nonlinearity)
+    args = (batch["x"], batch["V"], batch["w"], gammas, scales)
+    base = (batch["base_val"], batch["base_lap"])
+    n, R = batch["x"].shape[0], scales.shape[0]
+    sums = k1.collocation_sums_runs(params, *args, *base, **kw)
+    cots = k1.sums_to_loss(sums, n, spec.norm_weight)[3]
+    stale = k1.sums_to_loss(sums * torch.tensor([1.3, 0.9, 1.1, 0.8],
+                                                device=sums.device),
+                            n, spec.norm_weight)[3]
+    worst_abs, bit_equal = 0.0, True
+    for mode, c in (("exact", cots), ("delayed", stale)):
+        got, s_got = k2.collocation_grads_runs(params, *args, c, *base, **kw)
+        want, _ = k2.collocation_grads_runs_plain(params, *args, c, *base, **kw)
+        singles = [k2.collocation_grads(
+            run_slice(params, r), batch["x"], batch["V"], batch["w"], gammas[r],
+            scales[r], c[r], batch["base_val"][r], batch["base_lap"][r], **kw)
+            for r in range(R)]
+        torch.cuda.synchronize()
+        ab, norm = _grad_err(got, want)
+        one = tuple((torch.stack([g[0][li][0] for g in singles]),
+                     torch.stack([g[0][li][1] for g in singles]))
+                    for li in range(len(got)))
+        s_one = torch.stack([g[1] for g in singles])
+        _, norm_one = _grad_err(got, one)
+        equal = all(torch.equal(a, b) for (aw, ab_), (bw, bb) in zip(got, one)
+                    for a, b in ((aw, bw), (ab_, bb))) and torch.equal(s_got, s_one)
+        bit_equal = bit_equal and equal
+        s_rel = float(((s_got - sums).abs() / sums.abs()).max())
+        log(f"K3 grads {mode}: max|Δ| {ab:.3e}, normalised {norm:.2e} vs plain; "
+            f"vs {R} single-run K2 launches normalised {norm_one:.2e}, bit-equal "
+            f"{equal}; its sums vs run-mode K1 max rel {s_rel:.2e}")
+        if (norm > K2_TOL or norm_one > K2_TOL or s_rel > K1_TOL
+                or not math.isfinite(ab)):
+            raise AssertionError(f"run-mode K2 disagrees ({mode}): plain {norm:.3e}, "
+                                 f"single runs {norm_one:.3e}, sums {s_rel:.3e}")
+        worst_abs = max(worst_abs, ab)
+    leaves = [t.detach().requires_grad_(True) for pair in params for t in pair]
+    pairs = tuple((leaves[i], leaves[i + 1]) for i in range(0, len(leaves), 2))
+
+    def library():
+        s = _nested_runs(pairs, batch, gammas, scales, spec)
+        return torch.autograd.grad(torch.sum(cots * s), leaves)
+
+    ms = time_ms(lambda: k2.collocation_grads_runs(params, *args, cots, *base, **kw), 50)
+    singles_ms = time_ms(lambda: [k2.collocation_grads(
+        run_slice(params, r), batch["x"], batch["V"], batch["w"], gammas[r],
+        scales[r], cots[r], batch["base_val"][r], batch["base_lap"][r], **kw)
+        for r in range(R)], 20)
+    plain_ms = time_ms(lambda: k2.collocation_grads_runs_plain(
+        params, *args, cots, *base, **kw), 10)
+    lib_ms = time_ms(library, 3)
+    b_ms, b_by = bound(spec.layers, n, grad=True, runs=R)
+    log(f"K3 grads timing: kernel {ms:.4f} ms, {R} single-run K2 launches "
+        f"{singles_ms:.4f} ms, plain {plain_ms:.4f} ms, nested autograd "
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return {"name": "fused_grad_runs", "route": "cuda",
+            "source": "gpe_tpu_torch/csrc/fused_grad.cu",
+            "replaces": "gpe_tpu/pallas/fused_grad.py:396",
+            "max_abs_err": worst_abs, "bit_equal_to_single_runs": bit_equal,
+            "ms": ms, "single_runs_ms": singles_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def phase_packed_path(cfg, dev):
+    """The packed-ensemble path at full width and point count, shortened:
+    all six modes of `harmonic_paper` in one run-stacked ensemble."""
+    import torch
+    from gpe_tpu_torch.kernels import fused_grad as k2
+    from gpe_tpu_torch.kernels import fused_residual as k1
+    from gpe_tpu_torch.models.mlp import params_from_numpy, stack_runs
+    from gpe_tpu_torch.train.packed import (fit_ensemble_packed,
+                                            train_plpinn_modes_packed)
+    from gpe_tpu_torch.train.problem import make_batch
+
+    spec, modes = cfg.spec, cfg.modes
+    gammas, epochs = (0.0, 0.5, 1.0), 300
+    k1.collocation_sums_runs.launches = 0
+    k2.collocation_grads_runs.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = train_plpinn_modes_packed(spec, gamma_values=gammas, modes=modes,
+                                    epochs=epochs, patience=cfg.patience,
+                                    perturb_const=cfg.perturb_const, lr=cfg.lr,
+                                    seed=cfg.seed, pretrain_epochs=300,
+                                    check_every=100, rebase=True, device=dev,
+                                    verbose=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fused_residual_runs": k1.collocation_sums_runs.launches,
+                "fused_grad_runs": k2.collocation_grads_runs.launches}
+    steps = len(gammas) * epochs
+    log(f"train_plpinn_modes_packed wall {wall:.2f} s, {steps} steps of "
+        f"{len(modes)} runs; launches {launches}")
+    for m in modes:
+        log(f"  mode {m}: μ per γ {dict(res.mu_table[m])}")
+    # once per step each, plus one K1 per γ for μ at the restored params
+    if launches != {"fused_residual_runs": steps + len(gammas),
+                    "fused_grad_runs": steps}:
+        raise AssertionError(f"run-mode kernels not once per step: {launches}")
+    for m in modes:
+        mus = dict(res.mu_table[m])
+        if not all(math.isfinite(v) for v in mus.values()):
+            raise AssertionError(f"non-finite μ for mode {m}: {mus}")
+        if abs(mus[0.0] - (2 * m + 1)) > 1e-2:
+            raise AssertionError(f"mode {m}: μ(γ=0) = {mus[0.0]} is not within "
+                                 f"1e-2 of {2 * m + 1}")
+        if not mus[0.0] < mus[0.5] < mus[1.0]:
+            raise AssertionError(f"mode {m}: μ does not rise with γ: {mus}")
+
+    # ms per training step of the packed ensemble (exact two-kernel step)
+    batch = make_batch(spec, modes[0], device=dev)
+    per_mode = [make_batch(spec, m, device=dev) for m in modes]
+    prb = {k: torch.stack([b[k] for b in per_mode])
+           for k in ("base_val", "base_lap", "base_bval")}
+    params = stack_runs([params_from_numpy(res.params_by_mode[m][1.0], device=dev)
+                         for m in modes])
+    scale = torch.tensor([cfg.perturb_const / res.constant_history[m] for m in modes],
+                         device=dev)
+    before = (k1.collocation_sums_runs.launches, k2.collocation_grads_runs.launches)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fit_ensemble_packed(spec, params, batch, 1.0, scale, epochs=200, tol=0.0,
+                        patience=10 ** 9, check_every=100, lr=cfg.lr,
+                        lr_mode="loss_faithful", per_run_base=prb)
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / 200
+    after = (k1.collocation_sums_runs.launches, k2.collocation_grads_runs.launches)
+    log(f"fit_ensemble_packed ({len(modes)} runs, exact): {step_ms:.4f} ms/step, "
+        f"launches K3 sums {after[0] - before[0]}, K3 grads {after[1] - before[1]}")
+    return launches, {"packed_exact": step_ms}
+
+
 def main() -> int:
     try:
         import torch
@@ -349,6 +596,13 @@ def main() -> int:
     kernels = [phase_k1(spec, batch, params), phase_k2(spec, batch, params)]
     del batch, params
     launches, steps = phase_main_path(cfg, dev)
+    rcfg, rspec, rbatch, rparams, gammas, scales = runs_shape(dev)
+    kernels += [phase_k3_sums(rspec, rbatch, rparams, gammas, scales),
+                phase_k3_grads(rspec, rbatch, rparams, gammas, scales)]
+    del rbatch, rparams
+    packed_launches, packed_steps = phase_packed_path(rcfg, dev)
+    launches.update(packed_launches)
+    steps.update(packed_steps)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     log(json.dumps({"steps_ms": steps}))

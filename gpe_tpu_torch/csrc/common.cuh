@@ -250,6 +250,26 @@ __device__ __forceinline__ void last_layer(const float* X, const float* __restri
   __syncthreads();
 }
 
+// Run axis (both kernels). A launch covers R independent nets of one
+// architecture: run r's flat parameters at prm + r·n_params, its scalars at
+// scal + r·n_scal, its base arrays at base + r·stride (stride 0: shared).
+// Each run's tiles are split over S "slots" (S = min(SM count, tiles)); slot
+// b of run r walks tiles b, b+S, … and writes its own partial row at item
+// r·S + b. Blocks (persistent, at most one per SM) walk the items. The
+// second pass sums each run's S rows in a fixed order, in double. The tile
+// walk and the reduction order of a run do not depend on R, so a run's
+// results are bit-equal to a launch with that run alone (R = 1).
+__global__ void reduce_partials(const float* __restrict__ partial, int S, int R,
+                                int len, float* __restrict__ out) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= R * len) return;
+  const int run = j / len, k = j % len;
+  const float* src = partial + (size_t)run * S * len + k;
+  double s = 0.0;
+  for (int b = 0; b < S; ++b) s += src[(size_t)b * len];
+  out[j] = static_cast<float>(s);
+}
+
 }  // namespace gpe
 
 extern "C" const char* gpe_error_string(int code) {

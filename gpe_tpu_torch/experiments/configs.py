@@ -1,5 +1,6 @@
-"""Experiment registry, port of `gpe_tpu/experiments/configs.py` for the two
-configurations of the port's first slice (BASELINE configs #1 and #3)."""
+"""Experiment registry, port of `gpe_tpu/experiments/configs.py` for the
+configurations the port runs so far: BASELINE configs #1 and #3 and the
+paper's 1D harmonic sweep (`harmonic_paper`, the packed ensemble path)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
@@ -24,6 +25,10 @@ class ExperimentConfig:
     lm_polish: bool = False              # LM residual polish at the final γ
 
 
+def _gammas(n: int, step: float = 0.5, start: float = 0.0):
+    return tuple(start + k * step for k in range(n))
+
+
 _PAPER_1D = GPESpec(lb=-10.0, ub=10.0, n_points=4000, layers=(1, 64, 64, 64, 1),
                     activation="shifted_tanh", potential="harmonic",
                     basis="hermite", p=3.0, kinetic=1.0, nonlinearity="power",
@@ -36,6 +41,10 @@ def _register(cfg: ExperimentConfig):
     EXPERIMENTS[cfg.name] = cfg
     return cfg
 
+
+_register(ExperimentConfig(
+    name="harmonic_paper",                       # harmonic_pinn_simulation.py main
+    spec=_PAPER_1D, gamma_values=_gammas(201), modes=(0, 1, 2, 3, 4, 5)))
 
 _register(ExperimentConfig(
     name="linear_1d_sanity",                     # config #1: γ=0, μ=0.5 (−½Δ+½x²)

@@ -2,12 +2,15 @@
 
     python -m gpe_tpu_torch.experiments.profile_step [--steps 100]
 
-At the `gpe2d_ground_state` main shape (50,176 points, [2,128,128,128,1]),
-for the default relaxed step and the exact two-kernel step: the step time
-from CUDA events around `fit`, then the same steps under torch.profiler,
-summing the device time of every kernel by name. The device-busy share is
-kernel time per step over the un-profiled step time. Prints one JSON line
-per mode. Needs a CUDA device.
+Three steps: at the `gpe2d_ground_state` main shape (50,176 points,
+[2,128,128,128,1]) the default relaxed step and the exact two-kernel step
+of `fit`; at the `harmonic_paper` packed shape (six runs, modes 0–5, of
+[1,64,64,64,1] on 4,000 points) the exact run-mode step of
+`fit_ensemble_packed`. For each: the step time from CUDA events around the
+fit, then the same steps under torch.profiler, summing the device time of
+every kernel by name. The device-busy share is kernel time per step over
+the un-profiled step time. Prints one JSON line per step. Needs a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -20,8 +23,9 @@ import torch
 
 from gpe_tpu_torch.device import pin_full_f32, resolve_device
 from gpe_tpu_torch.experiments.configs import EXPERIMENTS
-from gpe_tpu_torch.models.mlp import init_mlp
+from gpe_tpu_torch.models.mlp import init_mlp, stack_runs
 from gpe_tpu_torch.train.loop import fit
+from gpe_tpu_torch.train.packed import fit_ensemble_packed
 from gpe_tpu_torch.train.plpinn import ramp_optimizer
 from gpe_tpu_torch.train.problem import (make_batch, make_fused_value_and_grad,
                                          make_loss_fn)
@@ -36,17 +40,8 @@ def _kernel_times(prof) -> dict:
     return out
 
 
-def profile_mode(relaxed: bool, steps: int, dev) -> dict:
-    cfg = EXPERIMENTS["gpe2d_ground_state"]
-    spec = cfg.spec
-    batch = make_batch(spec, 0, device=dev)
-    params = init_mlp(spec.layers, generator=torch.Generator().manual_seed(0),
-                      device=dev)
-    loss_fn = make_loss_fn(spec)
-    vag = make_fused_value_and_grad(spec, device=dev, relaxed=relaxed)
-    run = lambda n: fit(loss_fn, ramp_optimizer(cfg.lr), params, batch, 5.0,
-                        0.01, epochs=n, tol=-1.0, patience=10 ** 9,
-                        check_every=n, value_and_grad_fn=vag)
+def _profile(name: str, run, steps: int) -> dict:
+    """run(n) trains n steps; returns its step time and kernel breakdown."""
     run(10)                                            # build + warm up
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -62,7 +57,7 @@ def profile_mode(relaxed: bool, steps: int, dev) -> dict:
     kt = _kernel_times(prof)
     busy_ms = sum(kt.values()) / 1e3 / steps
     top = sorted(kt.items(), key=lambda kv: -kv[1])[:8]
-    return {"mode": "relaxed" if relaxed else "exact", "steps": steps,
+    return {"mode": name, "steps": steps,
             "step_ms": step_ms, "kernel_ms_per_step": busy_ms,
             "device_busy_share": busy_ms / step_ms,
             "kernel_launches_per_step": sum(
@@ -70,6 +65,37 @@ def profile_mode(relaxed: bool, steps: int, dev) -> dict:
                 if e.device_type == torch.autograd.DeviceType.CUDA) / steps,
             "top_kernels_ms_per_step": [(name[:60], us / 1e3 / steps)
                                         for name, us in top]}
+
+
+def profile_mode(relaxed: bool, steps: int, dev) -> dict:
+    cfg = EXPERIMENTS["gpe2d_ground_state"]
+    spec = cfg.spec
+    batch = make_batch(spec, 0, device=dev)
+    params = init_mlp(spec.layers, generator=torch.Generator().manual_seed(0),
+                      device=dev)
+    loss_fn = make_loss_fn(spec)
+    vag = make_fused_value_and_grad(spec, device=dev, relaxed=relaxed)
+    run = lambda n: fit(loss_fn, ramp_optimizer(cfg.lr), params, batch, 5.0,
+                        0.01, epochs=n, tol=-1.0, patience=10 ** 9,
+                        check_every=n, value_and_grad_fn=vag)
+    return _profile("relaxed" if relaxed else "exact", run, steps)
+
+
+def profile_packed(steps: int, dev) -> dict:
+    """The exact run-mode step of the six-mode harmonic_paper ensemble."""
+    cfg = EXPERIMENTS["harmonic_paper"]
+    spec, modes = cfg.spec, cfg.modes
+    batch = make_batch(spec, modes[0], device=dev)
+    per_mode = [make_batch(spec, m, device=dev) for m in modes]
+    prb = {k: torch.stack([b[k] for b in per_mode])
+           for k in ("base_val", "base_lap", "base_bval")}
+    params = stack_runs([init_mlp(spec.layers, generator=torch.Generator().manual_seed(r),
+                                  device=dev) for r in range(len(modes))])
+    run = lambda n: fit_ensemble_packed(spec, params, batch, 1.0, 0.01, epochs=n,
+                                        tol=-1.0, patience=10 ** 9, check_every=n,
+                                        lr=cfg.lr, lr_mode="loss_faithful",
+                                        per_run_base=prb)
+    return _profile(f"packed_exact_{len(modes)}_runs", run, steps)
 
 
 def main():
@@ -83,6 +109,7 @@ def main():
                          text=True, check=True).stdout.strip())
     for relaxed in (True, False):
         print(json.dumps(profile_mode(relaxed, args.steps, dev)), flush=True)
+    print(json.dumps(profile_packed(args.steps, dev)), flush=True)
 
 
 if __name__ == "__main__":

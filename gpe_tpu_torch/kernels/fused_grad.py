@@ -1,4 +1,5 @@
-"""K2 — the fused GPE training gradient, port of `gpe_tpu/pallas/fused_grad.py`.
+"""K2 — the fused GPE training gradient, port of `gpe_tpu/pallas/fused_grad.py`,
+and its run mode (K3, the port of `n_runs = M > 1`).
 
 The loss depends on the collocation points only through the four sums
 S = (Σ(Hu)², Σu·Hu, Σu², Σu²w):  L_colloc = (S₀ − S₁²/S₂)/N + λ(S₃ − 1)²,
@@ -7,7 +8,9 @@ linear in c. `collocation_grads` computes that gradient (and S) with the
 hand-written recompute-and-reverse kernel `csrc/fused_grad.cu` on CUDA
 tensors; on CPU tensors it takes `collocation_grads_plain`, autograd of
 Σ c_k·S_k(θ) over the plain K1 sums — the same function, independent of the
-kernel's hand-derived reverse.
+kernel's hand-derived reverse. `collocation_grads_runs` does the same for R
+run-stacked nets in one launch, with (R, 4) cotangents: its plain version is
+autograd of Σ_r Σ_k c_{r,k}·S_{r,k} over the plain run-mode sums.
 
 Around it, as in the JAX package:
 - `vag` (exact): K1 for S and c, then K2 with those c;
@@ -16,7 +19,7 @@ Around it, as in the JAX package:
   (cotangents from 2·S_{t−1} − S_{t−2}), `refresh_every`/`exact_until`
   (exact K1 steps), `fresh_values` (S₂, S₃ from a plain value-only forward).
 The boundary term (a few hundred points) is differentiated by autograd.
-Only one run per launch (the JAX package's n_runs = 1).
+`runs=True` builds the run mode (n_runs > 1 in the JAX package).
 """
 from __future__ import annotations
 
@@ -25,11 +28,15 @@ import ctypes
 import torch
 
 from gpe_tpu_torch.kernels import _build
-from gpe_tpu_torch.kernels._common import (ACT_CODES, NONLIN_CODES, check_inputs,
-                                           dims_array, kernel_supports, n_blocks,
-                                           pack_params, ptr, scalars, unpack_flat)
+from gpe_tpu_torch.kernels._common import (ACT_CODES, NONLIN_CODES, base_stride,
+                                           check_inputs, device_buffer,
+                                           dims_array, kernel_supports,
+                                           launch_geometry, pack_params, ptr,
+                                           run_scalars, scale_rows, unpack_flat)
 from gpe_tpu_torch.kernels.fused_residual import (collocation_sums,
                                                   collocation_sums_plain,
+                                                  collocation_sums_runs,
+                                                  collocation_sums_runs_plain,
                                                   sums_to_loss)
 from gpe_tpu_torch.models.mlp import mlp_apply
 
@@ -42,25 +49,74 @@ def _pairs(leaves):
     return tuple((leaves[i], leaves[i + 1]) for i in range(0, len(leaves), 2))
 
 
+def _autograd_grads(sums_fn, params, args, cots):
+    """(∇θ Σ cots·sums_fn(θ, *args), sums) by autograd."""
+    leaves = [t.detach().requires_grad_(True) for t in _leaves(params)]
+    with torch.enable_grad():
+        sums = sums_fn(_pairs(leaves), *args)
+        grads = torch.autograd.grad(torch.sum(cots.detach() * sums), leaves)
+    return _pairs(list(grads)), sums.detach()
+
+
 def collocation_grads_plain(params, x, V, w, gamma, scale, cots, base_val=None,
                             base_lap=None, activation: str = "tanh",
                             p: float = 3.0, kinetic: float = 1.0,
                             nonlinearity: str = "abs_power"):
     """Plain PyTorch K2: (∇θ Σ_k c_k·S_k, S) by autograd over the plain sums."""
-    leaves = [t.detach().requires_grad_(True) for t in _leaves(params)]
-    with torch.enable_grad():
-        sums = collocation_sums_plain(_pairs(leaves), x, V, w, gamma, scale,
-                                      base_val, base_lap, activation, p,
-                                      kinetic, nonlinearity)
-        grads = torch.autograd.grad(torch.sum(cots.detach() * sums), leaves)
-    return _pairs(list(grads)), sums.detach()
+    return _autograd_grads(collocation_sums_plain, params,
+                           (x, V, w, gamma, scale, base_val, base_lap,
+                            activation, p, kinetic, nonlinearity), cots)
+
+
+def collocation_grads_runs_plain(params, x, V, w, gamma, scale, cots,
+                                 base_val=None, base_lap=None,
+                                 activation: str = "tanh", p: float = 3.0,
+                                 kinetic: float = 1.0,
+                                 nonlinearity: str = "abs_power"):
+    """Plain PyTorch K2 run mode: (run-stacked ∇θ Σ_r Σ_k c_{r,k}·S_{r,k},
+    (R, 4) S) by autograd over the plain run-mode sums."""
+    return _autograd_grads(collocation_sums_runs_plain, params,
+                           (x, V, w, gamma, scale, base_val, base_lap,
+                            activation, p, kinetic, nonlinearity), cots)
 
 
 def _bind(lib):
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.gpe_k2_grads.argtypes = [P, P, P, P, P, P, ctypes.POINTER(I), I, I, I,
-                                 I, F, F, P, P, P, I, P, P]
-    lib.gpe_k2_grads.restype = I
+    lib.gpe_k2_grads_runs.argtypes = [P, P, P, P, I, P, I, P, ctypes.POINTER(I),
+                                      I, I, I, I, F, F, P, I, I, P, P, I, P, P]
+    lib.gpe_k2_grads_runs.restype = I
+
+
+def _launch(params, x, V, w, scal, base_val, base_lap, activation, p, kinetic,
+            nonlinearity, n_runs):
+    """One launch of csrc/fused_grad.cu for n_runs run-stacked nets (None:
+    one net); returns (R, n_params + 4): each run's flat gradient, then its
+    4 sums, and the widths."""
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    n, layers = check_inputs(params, x, V, w, base_val, base_lap, n_runs)
+    if not kernel_supports(layers, activation) or nonlinearity not in NONLIN_CODES:
+        raise ValueError(f"K2 does not take layers={layers}, "
+                         f"activation={activation!r}, nonlinearity={nonlinearity!r}")
+    lib = _build.library("fused_grad", _bind)
+    dev = x.device
+    R = n_runs or 1
+    prm = pack_params(params, n_runs)
+    n_params = prm.shape[-1]
+    S, G = launch_geometry(dev, n, layers[0], R)
+    scratch = device_buffer(dev, G * (len(layers) - 2) * 128 * 128,
+                            "K2 forward-state scratch")
+    partial = device_buffer(dev, R * S * (n_params + 4), "K2 partial gradients")
+    out = torch.empty((R, n_params + 4), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.gpe_k2_grads_runs(
+        ptr(x), ptr(V), ptr(w), ptr(base_val), base_stride(base_val),
+        ptr(base_lap), base_stride(base_lap), ptr(prm), dims_array(layers),
+        len(layers) - 1, n, ACT_CODES[activation], NONLIN_CODES[nonlinearity],
+        float(p), float(kinetic), ptr(scal), R, S, ptr(scratch), ptr(partial), G,
+        ptr(out), stream)
+    _build.check(lib, rc, "gpe_k2_grads_runs")
+    return out, layers
 
 
 def collocation_grads(params, x, V, w, gamma, scale, cots, base_val=None,
@@ -72,34 +128,37 @@ def collocation_grads(params, x, V, w, gamma, scale, cots, base_val=None,
         return collocation_grads_plain(params, x, V, w, gamma, scale, cots,
                                        base_val, base_lap, activation, p,
                                        kinetic, nonlinearity)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    n, layers = check_inputs(params, x, V, w, base_val, base_lap)
-    if not kernel_supports(layers, activation) or nonlinearity not in NONLIN_CODES:
-        raise ValueError(f"K2 does not take layers={layers}, "
-                         f"activation={activation!r}, nonlinearity={nonlinearity!r}")
-    lib = _build.library("fused_grad", _bind)
-    dev = x.device
-    prm = pack_params(params)
-    n_params = prm.numel()
-    scal = scalars(dev, gamma, scale, *cots.unbind())
-    P = n_blocks(dev)
-    scratch = torch.empty(P * (len(layers) - 2) * 128 * 128,
-                          dtype=torch.float32, device=dev)
-    partial = torch.empty(P * (n_params + 4), dtype=torch.float32, device=dev)
-    out = torch.empty(n_params + 4, dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.gpe_k2_grads(
-        ptr(x), ptr(V), ptr(w), ptr(base_val), ptr(base_lap), ptr(prm),
-        dims_array(layers), len(layers) - 1, n, ACT_CODES[activation],
-        NONLIN_CODES[nonlinearity], float(p), float(kinetic), ptr(scal),
-        ptr(scratch), ptr(partial), P, ptr(out), stream)
-    _build.check(lib, rc, "gpe_k2_grads")
+    scal = run_scalars(x.device, 1, gamma, scale, *cots.unbind(-1))
+    out, layers = _launch(params, x, V, w, scal, base_val, base_lap, activation,
+                          p, kinetic, nonlinearity, None)
     collocation_grads.launches += 1
-    return unpack_flat(out[:n_params], layers), out[n_params:]
+    return unpack_flat(out[0, :-4], layers), out[0, -4:]
 
 
 collocation_grads.launches = 0
+
+
+def collocation_grads_runs(params, x, V, w, gamma, scale, cots, base_val=None,
+                           base_lap=None, activation: str = "tanh",
+                           p: float = 3.0, kinetic: float = 1.0,
+                           nonlinearity: str = "abs_power"):
+    """(run-stacked grads, (R, 4) S) of R run-stacked nets in one launch —
+    the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+    cots: (R, 4) per-run cotangents; γ, scale and bases as in
+    `collocation_sums_runs`."""
+    if x.device.type == "cpu":
+        return collocation_grads_runs_plain(params, x, V, w, gamma, scale, cots,
+                                            base_val, base_lap, activation, p,
+                                            kinetic, nonlinearity)
+    R = params[0][0].shape[0]
+    scal = run_scalars(x.device, R, gamma, scale, *cots.unbind(-1))
+    out, layers = _launch(params, x, V, w, scal, base_val, base_lap, activation,
+                          p, kinetic, nonlinearity, R)
+    collocation_grads_runs.launches += 1
+    return unpack_flat(out[:, :-4], layers), out[:, -4:]
+
+
+collocation_grads_runs.launches = 0
 
 
 def make_value_and_grad(layers, activation: str = "tanh", p: float = 3.0,
@@ -107,7 +166,7 @@ def make_value_and_grad(layers, activation: str = "tanh", p: float = 3.0,
                         bc_weight: float = 10.0, norm_weight: float = 20.0,
                         delayed: bool = False, refresh_every: int = 0,
                         extrapolate: bool = False, exact_until: int = 0,
-                        fresh_values: bool = False):
+                        fresh_values: bool = False, runs: bool = False):
     """vag(params, batch, gamma, scale) -> ((total, aux), grads), the
     contract of autograd over make_loss_fn for a plain or perturbation
     ansatz; with delayed=True the stateful relaxed form
@@ -115,20 +174,34 @@ def make_value_and_grad(layers, activation: str = "tanh", p: float = 3.0,
     with `vag.init_state(params, batch, gamma, scale)`.
 
     The relaxed state is (S_{t−1}, S_{t−2}, step): two (4,) device tensors
-    and the host step count (which only decides whether a step runs K1)."""
+    and the host step count (which only decides whether a step runs K1).
+
+    runs=True is the run mode (the JAX package's n_runs = M > 1): params are
+    run-stacked, γ and scale numbers or (R,) tensors, the batch's base arrays
+    shared ((n,), (B,)) or per run ((R, n), (R, B)); total and every aux entry
+    are (R,), the gradient is run-stacked, the boundary objective is
+    Σ_r mean_r(bv²) with the per-run means in aux, and the relaxed state
+    holds (R, 4) sums. Each run's results are those of its own vag."""
     if layers[-1] != 1:
         raise ValueError("scalar-output nets only")
     kw = dict(activation=activation, p=p, kinetic=kinetic,
               nonlinearity=nonlinearity)
+    sums_fn = collocation_sums_runs if runs else collocation_sums
+    grads_fn = collocation_grads_runs if runs else collocation_grads
+
+    def _u(params, x, scale, base):
+        """base + scale·net(x): (N,), or (R, N) in the run mode."""
+        u = scale_rows(mlp_apply(params, x, activation), scale)
+        return u if base is None else base + u
 
     def boundary_vg(params, bx, scale, base_bval):
-        """(mean((base_bval + scale·net(bx))²), its gradient) by autograd."""
+        """(mean(bv²) per run, the gradient of their sum) by autograd."""
         leaves = [t.detach().requires_grad_(True) for t in _leaves(params)]
         with torch.enable_grad():
-            bv = base_bval + mlp_apply(_pairs(leaves), bx, activation) * scale
-            m = torch.mean(bv * bv)
-            grads = torch.autograd.grad(m, leaves)
-        return m.detach(), grads
+            bv = _u(_pairs(leaves), bx, scale, base_bval)
+            means = torch.mean(bv * bv, dim=-1)
+            grads = torch.autograd.grad(torch.sum(means), leaves)
+        return means.detach(), grads
 
     def _merge(cgrads, bgrads):
         leaves = [c + bc_weight * b for c, b in zip(_leaves(cgrads), bgrads)]
@@ -137,21 +210,19 @@ def make_value_and_grad(layers, activation: str = "tanh", p: float = 3.0,
     def _finish(params, batch, scale, sums, cgrads):
         mu, pde, norm, _ = sums_to_loss(sums, batch["x"].shape[0], norm_weight)
         bmean, bgrads = boundary_vg(params, batch["bx"], scale,
-                                    batch.get("base_bval", 0.0))
+                                    batch.get("base_bval"))
         total = pde + bc_weight * bmean + norm_weight * norm
         aux = {"pde": pde, "boundary": bmean, "norm": norm, "mu": mu,
                "total": total}
         return (total, aux), _merge(cgrads, bgrads)
 
     def _sums(params, batch, gamma, scale):
-        return collocation_sums(params, batch["x"], batch["V"], batch["w"],
-                                gamma, scale, batch.get("base_val"),
-                                batch.get("base_lap"), **kw)
+        return sums_fn(params, batch["x"], batch["V"], batch["w"], gamma, scale,
+                       batch.get("base_val"), batch.get("base_lap"), **kw)
 
     def _grads(params, batch, gamma, scale, cots):
-        return collocation_grads(params, batch["x"], batch["V"], batch["w"],
-                                 gamma, scale, cots, batch.get("base_val"),
-                                 batch.get("base_lap"), **kw)
+        return grads_fn(params, batch["x"], batch["V"], batch["w"], gamma, scale,
+                        cots, batch.get("base_val"), batch.get("base_lap"), **kw)
 
     def vag(params, batch, gamma, scale):
         sums = _sums(params, batch, gamma, scale)
@@ -164,10 +235,9 @@ def make_value_and_grad(layers, activation: str = "tanh", p: float = 3.0,
 
     def _value_sums(params, x, w, scale, base_val):
         """Exact (S₂, S₃) = (Σu², Σu²w) from a value-only plain forward."""
-        u = scale * mlp_apply(params, x, activation)
-        if base_val is not None:
-            u = base_val + u
-        return torch.stack([torch.sum(u * u), torch.sum(u * u * w)])
+        u = _u(params, x, scale, base_val)
+        return torch.stack([torch.sum(u * u, dim=-1), torch.sum(u * u * w, dim=-1)],
+                           dim=-1)
 
     def init_state(params, batch, gamma, scale):
         """Exact sums of the initial params (one K1 launch per fit); both
@@ -183,8 +253,9 @@ def make_value_and_grad(layers, activation: str = "tanh", p: float = 3.0,
         if do:
             sums_cot = _sums(params, batch, gamma, scale)
         if fresh_values:
-            sums_cot = torch.cat([sums_cot[:2], _value_sums(
-                params, batch["x"], batch["w"], scale, batch.get("base_val"))])
+            sums_cot = torch.cat([sums_cot[..., :2], _value_sums(
+                params, batch["x"], batch["w"], scale, batch.get("base_val"))],
+                dim=-1)
         _, _, _, cots = sums_to_loss(sums_cot, batch["x"].shape[0], norm_weight)
         cgrads, sums_new = _grads(params, batch, gamma, scale, cots)
         value, grads = _finish(params, batch, scale, sums_new, cgrads)

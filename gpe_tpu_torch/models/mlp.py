@@ -56,15 +56,30 @@ def params_from_numpy(params, device=None, dtype=torch.float32):
 
 
 def mlp_apply(params, x: torch.Tensor, activation: str = "tanh") -> torch.Tensor:
-    """Plain forward pass. x: (N, d) → (N,) for scalar-output nets."""
+    """Plain forward pass. x: (N, d) → (N,) for scalar-output nets. With
+    run-stacked params (a leading run axis R on every leaf, `stack_runs`)
+    the layers are batched matmuls over the shared x — the twin of
+    `jax.vmap(mlp_apply)` over the params — and the result is (R, N)."""
     act = activation_triple(activation)
     h = x[:, None] if x.ndim == 1 else x
     n_layers = len(params)
     for li, (w, b) in enumerate(params):
-        h = torch.matmul(h, w) + b
+        h = torch.matmul(h, w) + b.unsqueeze(-2)
         if li < n_layers - 1:
             h = act(h)[0]
-    return h[:, 0] if h.shape[-1] == 1 else h
+    return h[..., 0] if h.shape[-1] == 1 else h
+
+
+def stack_runs(params_list):
+    """R nets' params → run-stacked params (leading axis R on every leaf)."""
+    return tuple((torch.stack([p[li][0] for p in params_list]),
+                  torch.stack([p[li][1] for p in params_list]))
+                 for li in range(len(params_list[0])))
+
+
+def run_slice(params, r: int):
+    """Run r's ((W, b), ...) of run-stacked params."""
+    return tuple((W[r], b[r]) for W, b in params)
 
 
 def mlp_vgl(params, x: torch.Tensor, activation: str = "tanh") -> ValGradLap:

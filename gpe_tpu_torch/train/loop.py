@@ -32,6 +32,17 @@ class FitResult(NamedTuple):
     mu_best: float = 0.0       # μ evaluated at the restored best params
 
 
+class EnsembleFitResult(NamedTuple):
+    params: Any                # best params, leading axis = run
+    final_params: Any
+    best_loss: np.ndarray      # (R,)
+    mu: np.ndarray             # (R,) μ at last epoch
+    epochs_run: np.ndarray     # (R,)
+    loss_history: np.ndarray   # (R, T)
+    mu_history: np.ndarray     # (R, T)
+    mu_best: np.ndarray = None  # (R,) μ at the restored best params
+
+
 def value_and_grad(loss_fn: Callable) -> Callable:
     """vag(params, batch, gamma, scale) -> ((total, aux), grads) by autograd
     — the twin of jax.value_and_grad(loss_fn, has_aux=True)."""

@@ -228,6 +228,22 @@ def _resolve_relaxed(relaxed, fresh_values, extrapolate):
     return bool(relaxed), bool(fresh_values), bool(extrapolate)
 
 
+def _fused_loss(spec: GPESpec) -> bool:
+    """The loss the fused kernels model: plain or perturbation ansatz on a
+    square grid, pde + boundary + norm with fixed weights, Riemann
+    normalisation, f32, and a net the CUDA kernels take
+    (`kernels._common.kernel_supports`)."""
+    from gpe_tpu_torch.kernels._common import kernel_supports
+    return (spec.geometry == "square" and not spec.hard_bc
+            and spec.objective == "pde" and spec.weighting == "fixed"
+            and spec.riesz_weight == 0.0 and spec.sym_weight == 0.0
+            and not spec.anti_trivial and spec.width_weight == 0.0
+            and spec.mu_report_shift == 0.0
+            and spec.pde_weight == 1.0 and spec.norm_style == "riemann"
+            and spec.dtype == torch.float32
+            and kernel_supports(spec.layers, spec.activation))
+
+
 def make_fused_value_and_grad(spec: GPESpec, device=None,
                               relaxed: bool | None = None,
                               refresh_every: int = 0,
@@ -235,34 +251,61 @@ def make_fused_value_and_grad(spec: GPESpec, device=None,
                               exact_until: int = 0,
                               fresh_values: bool | None = None):
     """The fused CUDA training gradient (kernels/fused_grad.py) for eligible
-    specs on a CUDA device, else None — fit() then uses autograd.
-
-    Eligible = the loss the kernels model: plain or perturbation ansatz on a
-    square grid, pde + boundary + norm with fixed weights, Riemann
-    normalisation, f32, an activation with a σ‴ rule, a net the kernels take
-    (`kernels.fused_grad.kernel_supports`), and a CUDA device. The JAX
-    package's n ≥ 16384 gate was a TPU crossover and is not carried over.
-    GPE_TPU_TORCH_NO_FUSED=1 disables the fused path."""
-    from gpe_tpu_torch.kernels._common import kernel_supports
+    specs (`_fused_loss`) on a CUDA device, else None — fit() then uses
+    autograd. The JAX package's n ≥ 16384 gate was a TPU crossover and is
+    not carried over. GPE_TPU_TORCH_NO_FUSED=1 disables the fused path."""
     from gpe_tpu_torch.kernels.fused_grad import make_value_and_grad
 
     if os.environ.get("GPE_TPU_TORCH_NO_FUSED"):
         return None
     relaxed, fresh_values, extrapolate = _resolve_relaxed(
         relaxed, fresh_values, extrapolate)
-    ok = (resolve_device(device).type == "cuda"
-          and spec.geometry == "square" and not spec.hard_bc
-          and spec.objective == "pde" and spec.weighting == "fixed"
-          and spec.riesz_weight == 0.0 and spec.sym_weight == 0.0
-          and not spec.anti_trivial and spec.width_weight == 0.0
-          and spec.mu_report_shift == 0.0
-          and spec.pde_weight == 1.0 and spec.norm_style == "riemann"
-          and spec.dtype == torch.float32
-          and kernel_supports(spec.layers, spec.activation))
-    if not ok:
+    if resolve_device(device).type != "cuda" or not _fused_loss(spec):
         return None
     return make_value_and_grad(
         spec.layers, spec.activation, spec.p, spec.kinetic, spec.nonlinearity,
         bc_weight=spec.bc_weight, norm_weight=spec.norm_weight,
         delayed=relaxed, refresh_every=refresh_every, extrapolate=extrapolate,
         exact_until=exact_until, fresh_values=fresh_values)
+
+
+def packed_eligible(spec: GPESpec, n_runs: int) -> bool:
+    """The JAX package's packed eligibility (`make_packed_value_and_grad`)
+    without its TPU tile gates: at least 2 runs that the lane budget packs
+    (`kernels.packing.packable_runs`) and the loss the fused kernels model."""
+    from gpe_tpu_torch.kernels.packing import packable_runs
+    return n_runs >= 2 and packable_runs(spec.layers) >= n_runs and _fused_loss(spec)
+
+
+def packed_value_and_grad(spec: GPESpec, relaxed: bool | None = None,
+                          refresh_every: int = 0, extrapolate: bool = False):
+    """The run-mode fused gradient of a spec (kernels/fused_grad.py,
+    runs=True) on whatever device its tensors lie: the kernels on the card,
+    their plain versions on the CPU. The exact two-kernel step is the
+    default; relaxed=None reads GPE_TPU_TORCH_RELAXED_FUSED=1 (opt-in, as in
+    the JAX package, whose packed A/B found the relaxed mode less accurate)."""
+    from gpe_tpu_torch.kernels.fused_grad import make_value_and_grad
+
+    if relaxed is None:
+        relaxed = bool(os.environ.get("GPE_TPU_TORCH_RELAXED_FUSED"))
+    return make_value_and_grad(
+        spec.layers, spec.activation, spec.p, spec.kinetic, spec.nonlinearity,
+        bc_weight=spec.bc_weight, norm_weight=spec.norm_weight,
+        delayed=relaxed, refresh_every=refresh_every, extrapolate=extrapolate,
+        runs=True)
+
+
+def make_packed_value_and_grad(spec: GPESpec, n_runs: int, device=None,
+                               relaxed: bool | None = None,
+                               refresh_every: int = 0, extrapolate: bool = False):
+    """The fused gradient of the packed ensemble path (the port of JAX's
+    `make_packed_value_and_grad`): `packed_value_and_grad` when `packed_eligible`
+    and on a CUDA device, else None (as JAX's is None off the TPU).
+    The ensemble runs on a run axis of the kernels, not lane-packed; n_runs
+    (JAX's runs per kernel, M) only enters the eligibility.
+    GPE_TPU_TORCH_NO_FUSED=1 disables it."""
+    if os.environ.get("GPE_TPU_TORCH_NO_FUSED"):
+        return None
+    if resolve_device(device).type != "cuda" or not packed_eligible(spec, n_runs):
+        return None
+    return packed_value_and_grad(spec, relaxed, refresh_every, extrapolate)

@@ -96,3 +96,78 @@ def test_wrappers_count_launches_and_fused_training_uses_both(cuda_device,
                   tol=-1.0, patience=10 ** 9, check_every=5)
         np.testing.assert_allclose(res.loss_history[:1], ref.loss_history[:1],
                                    rtol=1e-4)
+
+
+def _run_inputs(layers, n, R, per_run, device, seed=0):
+    rng = np.random.default_rng(seed)
+    d = layers[0]
+    params = params_from_numpy(
+        [(rng.normal(0.0, 1.0 / np.sqrt(k), (R, k, m)), rng.normal(0.0, 0.1, (R, m)))
+         for k, m in zip(layers[:-1], layers[1:])], device=device)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    shape = (R, n) if per_run else (n,)
+    return dict(params=params, x=t(rng.uniform(-5.0, 5.0, (n, d))),
+                V=t(rng.uniform(0.0, 10.0, n)), w=t(np.full(n, 0.01)),
+                bval=t(rng.normal(0.0, 0.3, shape)), blap=t(rng.normal(0.0, 0.3, shape)),
+                gammas=t(rng.uniform(0.0, 5.0, R)), scales=t(rng.uniform(0.01, 0.1, R)),
+                cots=t(np.stack([[1e-3, -2e-3, 1e-3, 0.5]] * R) * rng.uniform(0.5, 2.0, (R, 1))))
+
+
+@pytest.mark.parametrize("layers,n,R,per_run", [((1, 64, 64, 64, 1), 4000, 6, True),
+                                                ((1, 32, 32, 1), 777, 8, True),
+                                                ((2, 64, 64, 1), 1000, 2, False),
+                                                ((2, 32, 32, 32, 1), 501, 3, True),
+                                                ((1, 64, 1), 300, 4, True)])
+def test_run_kernels_match_plain_and_single_runs_on_the_card(cuda_device, layers, n,
+                                                             R, per_run):
+    """The run-mode K1/K2 (K3) against their plain versions and against R
+    single-run launches, which they equal bit for bit (the same tile walk
+    and reduction order per run): d = 1 and 2, widths 32 and 64, R = 2–8,
+    ragged n, shared and per-run bases, power nonlinearity with u < 0."""
+    from gpe_tpu_torch.models.mlp import run_slice
+
+    a = _run_inputs(layers, n, R, per_run, cuda_device)
+    phys = ("shifted_tanh", 3.0, 1.0, "power")
+    args = (a["params"], a["x"], a["V"], a["w"], a["gammas"], a["scales"])
+    base = (a["bval"], a["blap"])
+    row = (lambda t, r: t[r]) if per_run else (lambda t, r: t)
+    got = k1.collocation_sums_runs(*args, *base, *phys)
+    want = k1.collocation_sums_runs_plain(*args, *base, *phys)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4)
+    grads, sums = k2.collocation_grads_runs(*args, a["cots"], *base, *phys)
+    pgrads, _ = k2.collocation_grads_runs_plain(*args, a["cots"], *base, *phys)
+    np.testing.assert_allclose(sums.cpu().numpy(), got.cpu().numpy(), rtol=1e-6)
+    for r in range(R):
+        _grads_close(run_slice(grads, r), run_slice(pgrads, r))
+        one_args = (run_slice(a["params"], r), a["x"], a["V"], a["w"], a["gammas"][r],
+                    a["scales"][r])
+        one_base = (row(a["bval"], r), row(a["blap"], r))
+        assert torch.equal(got[r], k1.collocation_sums(*one_args, *one_base, *phys))
+        g1, s1 = k2.collocation_grads(*one_args, a["cots"][r], *one_base, *phys)
+        assert torch.equal(sums[r], s1)
+        for (gw, gb), (ow, ob) in zip(run_slice(grads, r), g1):
+            assert torch.equal(gw, ow) and torch.equal(gb, ob)
+
+
+def test_packed_fit_launches_each_run_kernel_once_per_step(cuda_device, monkeypatch):
+    """On the card the packed gate returns the run-mode path; an exact fit
+    launches each run-mode kernel once per step (K1 once more for μ at the
+    restored params) and leaves the single-run counters alone."""
+    from gpe_tpu_torch.train import packed
+
+    monkeypatch.delenv("GPE_TPU_TORCH_NO_FUSED", raising=False)
+    monkeypatch.delenv("GPE_TPU_TORCH_NO_PACKED", raising=False)
+    monkeypatch.delenv("GPE_TPU_TORCH_RELAXED_FUSED", raising=False)
+    spec = tprob.GPESpec(n_points=500, layers=(1, 32, 32, 1), activation="tanh")
+    assert packed.packed_runs_available(spec, 4, device=cuda_device) == 4
+    batch = tprob.make_batch(spec, 0, device=cuda_device)
+    params = _run_inputs(spec.layers, 10, 4, False, cuda_device)["params"]
+    for c in (k1.collocation_sums, k2.collocation_grads, k1.collocation_sums_runs,
+              k2.collocation_grads_runs):
+        c.launches = 0
+    res = packed.fit_ensemble_packed(spec, params, batch, 1.0, 0.05, epochs=12,
+                                     tol=-1.0, patience=10 ** 9, check_every=5)
+    assert np.all(np.isfinite(res.loss_history)) and res.loss_history.shape == (4, 12)
+    assert k2.collocation_grads_runs.launches == 12
+    assert k1.collocation_sums_runs.launches == 13
+    assert k1.collocation_sums.launches == k2.collocation_grads.launches == 0
