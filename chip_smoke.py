@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from gpe_tpu_torch/csrc with nvcc and drives the
-port's two paths on the card:
+port's three paths on the card:
 
 1. the 2D main path, `gpe2d_ground_state` (50,176 points, [2,128,128,128,1]
    shifted_tanh MLP): K1 and K2 held against their plain PyTorch versions
@@ -16,7 +16,14 @@ port's two paths on the card:
    [1,64,64,64,1], modes 0–5): the run-mode K1 and K2 (K3) held against
    their plain versions and against six single-run launches, timed the same
    way, then `train_plpinn_modes_packed` over all six modes with a shortened
-   schedule, μ(γ=0) checked against 2n+1.
+   schedule, μ(γ=0) checked against 2n+1;
+3. the fused-eval benchmark, `python -m gpe_tpu_torch.bench`'s shape (50,176
+   points, [2,100,100,100,1]): K1 and K2 at width 100 against their plain
+   versions; K4 (csrc/rowcat_eval.cu) against its plain version and against
+   K1, at this shape and the main shape, timed; K1 and K4 with bf16 GEMM
+   operands against their bf16 plain versions and the f32 loss; the GEMM
+   propagator against the FFT one on a 256² grid; then the benchmark itself,
+   in-process with fewer repetitions, its JSON on a line of its own.
 
 Each path's launch counters are set to 0 just before it and read just
 after. Any failure exits non-zero. Output: the card's name and power limit,
@@ -33,14 +40,22 @@ import subprocess
 import sys
 import time
 
-# Published H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores
-# and HBM3 bandwidth. The kernels run f32 FFMA, so the f32 CUDA-core peak is
-# their operations roof.
-PEAK_F32_FLOPS = 67e12
+# Published H100 SXM HBM3 bandwidth (NVIDIA data sheet); the operations
+# peaks by GEMM operand type are gpe_tpu_torch.bench.PEAK_FLOPS.
 PEAK_HBM_BYTES = 3.35e12
 
 K1_TOL = 1e-4       # relative, per sum: f32, other summation order/association
 K2_TOL = 2e-4       # max |Δ| / max |g| per leaf (tests/test_pallas_grad.py's)
+# bf16 operand modes against their bf16 plain versions, relative per sum:
+# both round the same operands; an f32 value within f32 round-off of a bf16
+# rounding boundary may round the other way on one side, a 2^-8 change of
+# one term of one sum, so K1's f32 limit holds (1.1e-7 measured at the bench
+# shape on the H100).
+BF16_TOL = 1e-4
+# GEMM vs FFT propagator in f32 over 300 steps, norm and μ, relative: the
+# f32 propagators are unitary to round-off, so the norm drifts apart by
+# ~1e-7 a step; tests/test_gemm_step.py allows 2e-3 over 1200 steps.
+DYN_RTOL = 5e-4
 
 
 def log(*a):
@@ -63,24 +78,6 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def matmul_flops(layers, n: int, grad: bool) -> float:
-    """Multiply-add FLOPs the kernels do on these inputs (matmuls only; the
-    elementwise and transcendental work is left out, so the bound is a
-    lower bound). C = d+2 channel rows per point; layer 0 multiplies the
-    value channel only; the last layer is a (C x K) x (K x 1) product.
-    K2 adds, per hidden GEMM layer, the W̄ and the backprop GEMMs, and the
-    last layer's W̄ (value and Laplacian rows) and layer 0's W̄."""
-    d = layers[0]
-    C = d + 2
-    hidden = list(zip(layers[1:-2], layers[2:-1]))
-    per_pt = 2 * d * layers[1] + sum(2 * C * k * m for k, m in hidden) \
-        + 2 * C * layers[-2]
-    if grad:
-        per_pt += sum(4 * C * k * m for k, m in hidden) + 4 * layers[-2] \
-            + 2 * (d + 1) * layers[1]
-    return float(per_pt) * n
-
-
 def io_bytes(layers, n: int, grad: bool, runs: int = 1) -> float:
     """Bytes each input read once and each output written once: x (n·d),
     V, w (n each), each run's base value and Laplacian (n each), parameters
@@ -90,32 +87,16 @@ def io_bytes(layers, n: int, grad: bool, runs: int = 1) -> float:
     return float(b + (4 * runs * n_params if grad else 0))
 
 
-def bound(layers, n: int, grad: bool, runs: int = 1):
-    t_ops = runs * matmul_flops(layers, n, grad) / PEAK_F32_FLOPS * 1e3
+def bound(layers, n: int, grad: bool, runs: int = 1, operands: str = "f32"):
+    """(least ms, "operations" or "bytes"): the kernels' matmul FLOPs
+    (`gpe_tpu_torch.bench.matmul_flops`, the count the benchmark uses) over
+    the card's peak for their GEMM operands (f32: outside the tensor cores;
+    bf16: the dense tensor-core rate), or their bytes over the HBM rate, the
+    larger."""
+    from gpe_tpu_torch.bench import PEAK_FLOPS, matmul_flops
+    t_ops = runs * matmul_flops(layers, n, grad) / PEAK_FLOPS[operands] * 1e3
     t_mem = io_bytes(layers, n, grad, runs) / PEAK_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
-
-
-def nested_autograd_sums(params, batch, gamma, scale, activation, p, kinetic,
-                         nonlinearity):
-    """The four sums by the reference's route: the Laplacian from nested
-    reverse-mode autograd (create_graph) instead of the forward-Laplacian
-    recursion. The yardstick `library_ms`; the port never calls it."""
-    import torch
-    from gpe_tpu_torch.models.mlp import mlp_apply
-    from gpe_tpu_torch.ops.rayleigh import nonlinear_term
-
-    x = batch["x"].detach().requires_grad_(True)
-    net = mlp_apply(params, x, activation)
-    (g,) = torch.autograd.grad(net.sum(), x, create_graph=True)
-    lap = sum(torch.autograd.grad(g[:, i].sum(), x, create_graph=True)[0][:, i]
-              for i in range(x.shape[1]))
-    u = batch["base_val"] + scale * net
-    lp = batch["base_lap"] + scale * lap
-    hu = -kinetic * lp + batch["V"] * u + nonlinear_term(u, gamma, p, nonlinearity)
-    w = batch["w"]
-    return torch.stack([torch.sum(hu * hu), torch.sum(u * hu), torch.sum(u * u),
-                        torch.sum(u * u * w)])
 
 
 def phase_env():
@@ -154,6 +135,7 @@ def main_shape(dev):
 
 def phase_k1(spec, batch, params):
     import torch
+    from gpe_tpu_torch.bench import nested_autograd_sums
     from gpe_tpu_torch.kernels import fused_residual as k1
 
     kw = dict(activation=spec.activation, p=spec.p, kinetic=spec.kinetic,
@@ -214,6 +196,7 @@ def _grad_err(got, want):
 
 def phase_k2(spec, batch, params):
     import torch
+    from gpe_tpu_torch.bench import nested_autograd_sums
     from gpe_tpu_torch.kernels import fused_grad as k2
     from gpe_tpu_torch.kernels import fused_residual as k1
 
@@ -365,6 +348,7 @@ def runs_shape(dev):
 def _nested_runs(params, batch, gammas, scales, spec):
     """The library yardstick of the run mode: nested autograd, run by run."""
     import torch
+    from gpe_tpu_torch.bench import nested_autograd_sums
     from gpe_tpu_torch.models.mlp import run_slice
 
     out = []
@@ -570,6 +554,210 @@ def phase_packed_path(cfg, dev):
     return launches, {"packed_exact": step_ms}
 
 
+def bench_shape(dev):
+    """`python -m gpe_tpu_torch.bench`'s inputs: 224² points of the 2D
+    harmonic trap, [2,100,100,100,1] shifted_tanh from init_mlp seed 0."""
+    import torch
+    from gpe_tpu_torch.bench import bench_spec
+    from gpe_tpu_torch.models.mlp import init_mlp
+    from gpe_tpu_torch.train.problem import make_batch
+
+    spec = bench_spec()
+    return spec, make_batch(spec, 0, device=dev), init_mlp(
+        spec.layers, "xavier_uniform", generator=torch.Generator().manual_seed(0),
+        device=dev)
+
+
+def _sums_args(spec, batch, gamma, scale):
+    kw = dict(activation=spec.activation, p=spec.p, kinetic=spec.kinetic,
+              nonlinearity=spec.nonlinearity)
+    return (batch["x"], batch["V"], batch["w"], gamma, scale,
+            batch.get("base_val"), batch.get("base_lap")), kw
+
+
+def _rel(got, want):
+    return float(((got - want).abs() / want.abs()).max())
+
+
+def phase_width100(spec, batch, params):
+    """K1 and K2 at the bench's width 100 (not a multiple of 8) against
+    their plain versions."""
+    import torch
+    from gpe_tpu_torch.kernels import fused_grad as k2
+    from gpe_tpu_torch.kernels import fused_residual as k1
+
+    n = batch["x"].shape[0]
+    for gamma, scale in ((5.0, 0.05), (100.0, 0.01)):
+        args, kw = _sums_args(spec, batch, gamma, scale)
+        got = k1.collocation_sums(params, *args, **kw)
+        want = k1.collocation_sums_plain(params, *args, **kw)
+        cots = k1.sums_to_loss(got, n, spec.norm_weight)[3]
+        grads, s2 = k2.collocation_grads(params, *args[:5], cots, *args[5:], **kw)
+        pgrads, _ = k2.collocation_grads_plain(params, *args[:5], cots, *args[5:], **kw)
+        torch.cuda.synchronize()
+        rel, (_, norm) = _rel(got, want), _grad_err(grads, pgrads)
+        log(f"width 100 γ={gamma} s={scale}: K1 sums vs plain max rel {rel:.2e}; "
+            f"K2 grads normalised {norm:.2e}, its sums vs K1 {_rel(s2, got):.2e}")
+        if not torch.isfinite(got).all() or rel > K1_TOL or norm > K2_TOL:
+            raise AssertionError(f"K1/K2 at width 100 disagree: {rel:.3e}, {norm:.3e}")
+
+
+def phase_k4(spec, batch, params, label):
+    """K4 against its plain version and K1 (rel ≤ 1e-4 per sum), timed as
+    kernel, plain version and library (nested autograd)."""
+    import torch
+    from gpe_tpu_torch.bench import nested_autograd_sums
+    from gpe_tpu_torch.kernels import fused_residual as k1
+    from gpe_tpu_torch.kernels import rowcat_eval as k4
+
+    worst_abs = worst_rel = 0.0
+    for gamma, scale in ((0.0, 0.01), (5.0, 0.05), (100.0, 0.01)):
+        args, kw = _sums_args(spec, batch, gamma, scale)
+        got = k4.collocation_sums(params, *args, **kw)
+        want = k4.collocation_sums_plain(params, *args, **kw)
+        ref = k1.collocation_sums(params, *args, **kw)
+        torch.cuda.synchronize()
+        rel, rel1 = _rel(got, want), _rel(got, ref)
+        log(f"K4 {label} γ={gamma} s={scale}: kernel {got.tolist()} max rel vs "
+            f"plain {rel:.2e}, vs K1 {rel1:.2e}")
+        if not torch.isfinite(got).all() or rel > K1_TOL or rel1 > K1_TOL:
+            raise AssertionError(f"K4 disagrees: plain {rel:.3e}, K1 {rel1:.3e}")
+        worst_abs = max(worst_abs, float((got - want).abs().max()))
+        worst_rel = max(worst_rel, rel)
+    args, kw = _sums_args(spec, batch, 5.0, 0.05)
+    ms = time_ms(lambda: k4.collocation_sums(params, *args, **kw), 20)
+    k1_ms = time_ms(lambda: k1.collocation_sums(params, *args, **kw), 20)
+    plain_ms = time_ms(lambda: k4.collocation_sums_plain(params, *args, **kw), 10)
+    lib_ms = time_ms(lambda: nested_autograd_sums(params, batch, 5.0, 0.05, **kw), 5)
+    b_ms, b_by = bound(spec.layers, batch["x"].shape[0], grad=False)
+    log(f"K4 {label} timing: kernel {ms:.4f} ms, K1 {k1_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, nested autograd {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by})")
+    return {"name": "rowcat_eval", "route": "cuda",
+            "source": "gpe_tpu_torch/csrc/rowcat_eval.cu",
+            "replaces": "gpe_tpu/pallas/rowcat_eval.py:180",
+            "max_abs_err": worst_abs, "max_rel_err": worst_rel, "ms": ms,
+            "k1_ms": k1_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms}
+
+
+def phase_bf16(spec, batch, params):
+    """K1 and K4 with bf16 GEMM operands against their bf16 plain versions
+    (BF16_TOL per sum) and, as the benchmark checks, their loss within 0.1
+    of the plain f32 loss; timed as kernel, bf16 plain version and library
+    (nested autograd with bf16 parameters and inputs); bound at the bf16
+    tensor-core peak."""
+    import torch
+    from gpe_tpu_torch.bench import (GAMMA, LOSS_TOL_BF16, SCALE, bench_tile,
+                                     nested_autograd_sums)
+    from gpe_tpu_torch.kernels import fused_residual as k1
+    from gpe_tpu_torch.kernels import rowcat_eval as k4
+    from gpe_tpu_torch.train.problem import make_loss_fn
+
+    bf16 = torch.bfloat16
+    _, kw = _sums_args(spec, batch, 0.0, 0.0)
+    weights = dict(bc_weight=spec.bc_weight, norm_weight=spec.norm_weight)
+    ref = float(make_loss_fn(spec)(params, batch, GAMMA, SCALE)[0])
+    p16 = tuple((W.to(bf16), b.to(bf16)) for W, b in params)
+    b16 = {k: v.to(bf16) for k, v in batch.items()}
+    evals = {"fused_residual_bf16": (k1, k1.make_loss_eval(
+                 spec.layers, **kw, **weights, compute_dtype=bf16),
+                 "gpe_tpu/pallas/fused_residual.py:246"),
+             "rowcat_eval_bf16": (k4, k4.make_rowcat_loss_eval(
+                 spec.layers, **kw, **weights, compute_dtype=bf16,
+                 tile=bench_tile(batch["x"].shape[0])),
+                 "gpe_tpu/pallas/rowcat_eval.py:180")}
+    rows = []
+    for name, (mod, ev, replaces) in evals.items():
+        worst_abs = worst_rel = 0.0
+        for gamma, scale in ((5.0, 0.05), (GAMMA, SCALE)):
+            args, _ = _sums_args(spec, batch, gamma, scale)
+            got = mod.collocation_sums(params, *args, **kw, compute_dtype=bf16)
+            want = mod.collocation_sums_plain(params, *args, **kw, compute_dtype=bf16)
+            f32 = mod.collocation_sums_plain(params, *args, **kw)
+            torch.cuda.synchronize()
+            rel = _rel(got, want)
+            log(f"{name} γ={gamma} s={scale}: kernel {got.tolist()} max rel vs "
+                f"bf16 plain {rel:.2e}, vs f32 plain {_rel(got, f32):.2e}")
+            if not torch.isfinite(got).all() or rel > BF16_TOL:
+                raise AssertionError(f"{name} disagrees with its plain version: "
+                                     f"{rel:.3e}")
+            worst_abs = max(worst_abs, float((got - want).abs().max()))
+            worst_rel = max(worst_rel, rel)
+        loss = float(ev(params, batch, GAMMA, SCALE)[0])
+        loss_rel = abs(loss - ref) / abs(ref)
+        log(f"{name} loss {loss} vs plain f32 {ref}: rel {loss_rel:.2e}")
+        if not loss_rel < LOSS_TOL_BF16:
+            raise AssertionError(f"{name} loss off the f32 loss: {loss_rel:.3e}")
+        args, _ = _sums_args(spec, batch, 5.0, 0.05)
+        ms = time_ms(lambda: mod.collocation_sums(params, *args, **kw,
+                                                  compute_dtype=bf16), 20)
+        plain_ms = time_ms(lambda: mod.collocation_sums_plain(
+            params, *args, **kw, compute_dtype=bf16), 10)
+        lib_ms = time_ms(lambda: nested_autograd_sums(p16, b16, 5.0, 0.05, **kw), 5)
+        b_ms, b_by = bound(spec.layers, batch["x"].shape[0], grad=False,
+                           operands="bf16")
+        log(f"{name} timing: kernel {ms:.4f} ms, bf16 plain {plain_ms:.4f} ms, "
+            f"nested autograd in bf16 {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"gpe_tpu_torch/csrc/{mod.__name__.split('.')[-1]}.cu",
+                     "replaces": replaces, "max_abs_err": worst_abs,
+                     "max_rel_err": worst_rel, "loss_vs_f32_rel_err": loss_rel,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": lib_ms})
+    return rows
+
+
+def phase_dynamics(dev, n: int = 256, steps: int = 300):
+    """evolve_gemm against evolve (f32, periodic, harmonic trap, γ = 100) on
+    the benchmark's n² grid: norm and μ within DYN_RTOL; both engines' rates
+    per step, host set-up excluded (`bench.propagator_ms`)."""
+    import numpy as np
+    from gpe_tpu_torch.bench import GAMMA, dynamics_grid, per_sec, propagator_ms
+    from gpe_tpu_torch.dynamics import evolve, evolve_gemm
+
+    psi, V, dx, lb = dynamics_grid(n)
+    engines = {"gemm": evolve_gemm, "fft": evolve}
+    (pg, og), (pf, of) = (fn(psi, V, dx, 1e-3, steps, GAMMA, bc="periodic", lb=lb,
+                             record_every=100, device=dev)
+                          for fn in engines.values())
+    rel = {k: float(np.max(np.abs(og[k] - of[k]) / np.abs(of[k])))
+           for k in ("norm", "mu")}
+    psi_err = float((pg - pf).abs().max())
+    rate = {k: per_sec(n * n, propagator_ms(fn, dev, n, 100), k)
+            for k, fn in engines.items()}
+    log(f"dynamics {n}² f32, {steps} steps: evolve_gemm vs evolve max rel "
+        f"{rel}, max|Δψ| {psi_err:.2e}; μ {og['mu'][-1]:.6f} / {of['mu'][-1]:.6f}; "
+        f"grid-pt·steps/s gemm {rate['gemm']:.4e}, fft {rate['fft']:.4e}")
+    if not all(v <= DYN_RTOL for v in rel.values()) or not np.isfinite(psi_err):
+        raise AssertionError(f"evolve_gemm disagrees with evolve: {rel}")
+    return rate
+
+
+def phase_bench(dev):
+    """The fused-eval benchmark, in-process at full width with fewer
+    repetitions; every counter set to 0 just before and read just after."""
+    from gpe_tpu_torch import bench
+    from gpe_tpu_torch.kernels import fused_grad as k2
+    from gpe_tpu_torch.kernels import fused_residual as k1
+    from gpe_tpu_torch.kernels import rowcat_eval as k4
+
+    counters = {"fused_residual": (k1.collocation_sums, "launches"),
+                "fused_residual_bf16": (k1.collocation_sums, "bf16_launches"),
+                "fused_grad": (k2.collocation_grads, "launches"),
+                "rowcat_eval": (k4.collocation_sums, "launches"),
+                "rowcat_eval_bf16": (k4.collocation_sums, "bf16_launches")}
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    rec = bench.measure(device=dev, iters=10, dyn_steps=100)
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    log(json.dumps(rec))
+    log(f"bench launches {launches}")
+    if not all(v > 0 for v in launches.values()):
+        raise AssertionError(f"a kernel of the benchmark never launched: {launches}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -603,6 +791,16 @@ def main() -> int:
     packed_launches, packed_steps = phase_packed_path(rcfg, dev)
     launches.update(packed_launches)
     steps.update(packed_steps)
+    bspec, bbatch, bparams = bench_shape(dev)
+    phase_width100(bspec, bbatch, bparams)
+    kernels.append(phase_k4(bspec, bbatch, bparams, "bench shape"))
+    kernels[-1]["main_shape_ms"] = phase_k4(*main_shape(dev)[1:], "main shape")["ms"]
+    kernels += phase_bf16(bspec, bbatch, bparams)
+    del bbatch, bparams
+    phase_dynamics(dev)
+    bench_launches = phase_bench(dev)
+    launches.update({k: bench_launches[k] for k in
+                     ("rowcat_eval", "fused_residual_bf16", "rowcat_eval_bf16")})
     for k in kernels:
         k["launches"] = launches[k["name"]]
     log(json.dumps({"steps_ms": steps}))

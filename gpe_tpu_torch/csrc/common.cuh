@@ -7,11 +7,17 @@
 // Rows m >= C*T and units past a layer's width stay zero.
 //
 // GEMMs run on CUDA cores in f32 FFMA (tensor cores would mean TF32, ~3
-// decimal digits, which breaks parity with the f32 reference). 256 threads
+// decimal digits, which breaks parity with the f32 reference). In the bf16
+// operand mode (template flag BF16, K1 and K4 only) every GEMM operand —
+// weights, channel state, layer 0's input x — is rounded to bf16 (nearest
+// even) where it is staged; a bf16 x bf16 product is exact in f32, so FFMA
+// then gives the TPU's bf16-MXU contract with f32 accumulation. Biases,
+// activations, the Hamiltonian and the sums stay f32. 256 threads
 // each own an 8 x 8 register tile of the 128 x 128 output; operands are read
 // from shared memory as float4, both "contraction-major":
 //     C[i][j] = sum_q A[q*LDS + i] * B[q*LDS + j].
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -50,6 +56,13 @@ inline Net make_net(const int* dims, int n_layers) {
   }
   net.n_params = off;
   return net;
+}
+
+// A GEMM operand as staged: rounded to bf16 (nearest even) in the bf16 mode.
+template <bool BF16>
+__device__ __forceinline__ float op(float v) {
+  if constexpr (BF16) return __bfloat162float(__float2bfloat16_rn(v));
+  else return v;
 }
 
 // sigma and its first three derivatives at the preactivation z (recomputed
@@ -132,12 +145,14 @@ __device__ __forceinline__ void store_tile(float* dst, const float acc[8][8]) {
 // W_l (K x N, row major, global) into a smem tile, zero-padded to 128 columns:
 //   transpose = false: dst[k*LDS + o] = W[k][o]  (k < K)
 //   transpose = true : dst[o*LDS + k] = W[k][o]  (o < N, k < 128)
+// BF16 rounds each element as it is staged (forward GEMM operands only).
+template <bool BF16 = false>
 __device__ __forceinline__ void load_w(const float* __restrict__ W, int K, int N,
                                        float* dst, bool transpose) {
   if (!transpose) {
     for (int idx = threadIdx.x; idx < K * MAXW; idx += NT) {
       const int k = idx / MAXW, o = idx % MAXW;
-      dst[k * LDS + o] = (o < N) ? W[k * N + o] : 0.f;
+      dst[k * LDS + o] = (o < N) ? op<BF16>(W[k * N + o]) : 0.f;
     }
   } else {
     for (int idx = threadIdx.x; idx < N * MAXW; idx += NT) {
@@ -153,7 +168,9 @@ __device__ __forceinline__ void load_w(const float* __restrict__ W, int K, int N
 // Jacobian rows, Laplacian) is written to store[l*128*128 + unit*128 + m].
 // W_l (l = 1..L-2) sits in the smem tile wbase + (l-1)*TILE_FLOATS when the
 // weights are resident, or is loaded here into wbase when `stream` is set.
-template <int D>
+// BF16: the state written to X (the next GEMM's operand), x and W0 are
+// rounded (K2 calls it with BF16 = false and a `store`).
+template <int D, bool BF16 = false>
 __device__ void forward_tile(float* X, const float* xs, const float* __restrict__ prm,
                              const Net& net, int act, float* wbase, bool stream,
                              float* __restrict__ store) {
@@ -169,18 +186,19 @@ __device__ void forward_tile(float* X, const float* xs, const float* __restrict_
       float z = 0.f, g2 = 0.f;
 #pragma unroll
       for (int i = 0; i < D; ++i) {
-        const float wi = W0[i * N + o];
-        z = fmaf(xs[r * D + i], wi, z);
+        const float wi = op<BF16>(W0[i * N + o]);
+        z = fmaf(op<BF16>(xs[r * D + i]), wi, z);
         g2 = fmaf(wi, wi, g2);
       }
       z += b0[o];
       float s0, s1, s2, s3;
       act_quad(act, z, s0, s1, s2, s3);
       float* xo = X + o * LDS;
-      xo[r] = s0;
+      xo[r] = op<BF16>(s0);
 #pragma unroll
-      for (int i = 0; i < D; ++i) xo[(1 + i) * T + r] = s1 * W0[i * N + o];
-      xo[(C - 1) * T + r] = s2 * g2;
+      for (int i = 0; i < D; ++i)
+        xo[(1 + i) * T + r] = op<BF16>(s1 * op<BF16>(W0[i * N + o]));
+      xo[(C - 1) * T + r] = op<BF16>(s2 * g2);
       if (store) {
         float* so = store + o * MAXW;
         so[r] = z;
@@ -195,7 +213,7 @@ __device__ void forward_tile(float* X, const float* xs, const float* __restrict_
     float* Wl = stream ? wbase : wbase + (l - 1) * TILE_FLOATS;
     __syncthreads();
     if (stream) {
-      load_w(prm + net.w_off[l], K, N, Wl, false);
+      load_w<BF16>(prm + net.w_off[l], K, N, Wl, false);
       __syncthreads();
     }
     float acc[8][8];
@@ -218,10 +236,10 @@ __device__ void forward_tile(float* X, const float* xs, const float* __restrict_
       const float lz = xo[(C - 1) * T + r];
       float s0, s1, s2, s3;
       act_quad(act, z, s0, s1, s2, s3);
-      xo[r] = s0;
+      xo[r] = op<BF16>(s0);
 #pragma unroll
-      for (int i = 0; i < D; ++i) xo[(1 + i) * T + r] = s1 * jz[i];
-      xo[(C - 1) * T + r] = s1 * lz + s2 * g2;
+      for (int i = 0; i < D; ++i) xo[(1 + i) * T + r] = op<BF16>(s1 * jz[i]);
+      xo[(C - 1) * T + r] = op<BF16>(s1 * lz + s2 * g2);
       if (sl) {
         float* so = sl + o * MAXW;
         so[r] = z;
@@ -234,8 +252,9 @@ __device__ void forward_tile(float* X, const float* xs, const float* __restrict_
   __syncthreads();
 }
 
-// Last (linear, width-1) layer: out[m] = sum_k X[k][m] W[k] for m < C*T.
-template <int D>
+// Last (linear, width-1) layer: out[m] = sum_k X[k][m] W[k] for m < C*T
+// (X is already rounded in the bf16 mode; W is rounded here).
+template <int D, bool BF16 = false>
 __device__ __forceinline__ void last_layer(const float* X, const float* __restrict__ prm,
                                            const Net& net, float* outv) {
   constexpr int C = D + 2, T = MAXW / C;
@@ -244,7 +263,7 @@ __device__ __forceinline__ void last_layer(const float* X, const float* __restri
   const float* W = prm + net.w_off[L - 1];
   for (int m = threadIdx.x; m < C * T; m += NT) {
     float s = 0.f;
-    for (int k = 0; k < K; ++k) s = fmaf(X[k * LDS + m], W[k], s);
+    for (int k = 0; k < K; ++k) s = fmaf(X[k * LDS + m], op<BF16>(W[k]), s);
     outv[m] = s;
   }
   __syncthreads();

@@ -32,11 +32,15 @@
 //   each run's rows in a fixed order (in double) — deterministic.
 // - Ragged edge: points past n load x = 0 and are masked out of the sums (a
 //   padded point's u(0) ≠ 0 must not contribute).
+// - compute_dtype = bf16 (template flag BF16, single runs; the run mode
+//   stays f32 as in JAX): every GEMM operand is rounded to bf16 where it is
+//   staged (common.cuh `op`), the FFMA products and sums stay f32. The f32
+//   instantiation is the code it was before the flag.
 #include "common.cuh"
 
 namespace gpe {
 
-template <int D>
+template <int D, bool BF16>
 __global__ void __launch_bounds__(NT, 1)
 sums_kernel(const float* __restrict__ x, const float* __restrict__ V,
             const float* __restrict__ w, const float* __restrict__ bval,
@@ -63,8 +67,8 @@ sums_kernel(const float* __restrict__ x, const float* __restrict__ V,
     __syncthreads();                 // the previous item is done with Wsm, red
     if (resident)
       for (int l = 1; l <= L - 2; ++l)
-        load_w(prm_r + net.w_off[l], net.dims[l], net.dims[l + 1],
-               Wsm + (l - 1) * TILE_FLOATS, false);
+        load_w<BF16>(prm_r + net.w_off[l], net.dims[l], net.dims[l + 1],
+                     Wsm + (l - 1) * TILE_FLOATS, false);
     const float gamma = scal[2 * run], scale = scal[2 * run + 1];
     const float b_last = prm_r[net.b_off[L - 1]];
     float acc0 = 0.f, acc1 = 0.f, acc2 = 0.f, acc3 = 0.f;
@@ -77,8 +81,8 @@ sums_kernel(const float* __restrict__ x, const float* __restrict__ V,
         xs[i] = (base + r < n) ? x[(size_t)base * D + i] : 0.f;
       }
       __syncthreads();
-      forward_tile<D>(X, xs, prm_r, net, ph.act, Wsm, !resident, nullptr);
-      last_layer<D>(X, prm_r, net, outv);
+      forward_tile<D, BF16>(X, xs, prm_r, net, ph.act, Wsm, !resident, nullptr);
+      last_layer<D, BF16>(X, prm_r, net, outv);
       const int r = threadIdx.x;
       if (r < T && base + r < n) {
         const int g = base + r;
@@ -110,7 +114,7 @@ sums_kernel(const float* __restrict__ x, const float* __restrict__ V,
   }
 }
 
-template <int D>
+template <int D, bool BF16>
 int launch(const float* x, const float* V, const float* w, const float* bval,
            int bval_stride, const float* blap, int blap_stride, const float* prm,
            const Net& net, const Phys& ph, const float* scal, int n, int R,
@@ -120,9 +124,9 @@ int launch(const float* x, const float* V, const float* w, const float* bval,
   const size_t smem = (size_t)TILE_FLOATS * sizeof(float) *
                       (1 + (resident ? (n_gemm > 0 ? n_gemm : 0) : 1));
   cudaError_t err = cudaFuncSetAttribute(
-      sums_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      sums_kernel<D, BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  sums_kernel<D><<<n_blocks, NT, smem, stream>>>(
+  sums_kernel<D, BF16><<<n_blocks, NT, smem, stream>>>(
       x, V, w, bval, bval_stride, blap, blap_stride, prm, net, ph, scal, n, R,
       S, resident, partial);
   err = cudaGetLastError();
@@ -138,8 +142,9 @@ int launch(const float* x, const float* V, const float* w, const float* bval,
 // (W0, b0, W1, b1, ...) per run); scal: R x [gamma, scale]; bval/blap: null,
 // or run r's n values at +r·stride (stride 0: one array shared by all runs).
 // S: slots per run (min(SM count, tiles)); partial: R·S·4 floats of scratch;
-// n_blocks: grid size (≤ SM count); out: R x 4 sums. Returns the CUDA error
-// code of the launches (0 on success).
+// n_blocks: grid size (≤ SM count); out: R x 4 sums; bf16: 1 rounds every
+// GEMM operand to bf16 (R = 1 only). Returns the CUDA error code of the
+// launches (0 on success).
 extern "C" int gpe_k1_sums_runs(const float* x, const float* V, const float* w,
                                 const float* bval, int bval_stride,
                                 const float* blap, int blap_stride,
@@ -147,16 +152,24 @@ extern "C" int gpe_k1_sums_runs(const float* x, const float* V, const float* w,
                                 int n, int act, int nonlin, float p,
                                 float kinetic, const float* scal, int R, int S,
                                 float* partial, int n_blocks, float* out,
-                                void* stream) {
+                                int bf16, void* stream) {
   using namespace gpe;
-  if (R < 1 || S < 1 || n_blocks < 1) return (int)cudaErrorInvalidValue;
+  if (R < 1 || S < 1 || n_blocks < 1 || (bf16 && R != 1))
+    return (int)cudaErrorInvalidValue;
   const Net net = make_net(dims, n_layers);
   const Phys ph{act, nonlin, p, kinetic};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dims[0]) {
-    case 1: return launch<1>(x, V, w, bval, bval_stride, blap, blap_stride, prm, net, ph, scal, n, R, S, partial, n_blocks, out, s);
-    case 2: return launch<2>(x, V, w, bval, bval_stride, blap, blap_stride, prm, net, ph, scal, n, R, S, partial, n_blocks, out, s);
-    case 3: return launch<3>(x, V, w, bval, bval_stride, blap, blap_stride, prm, net, ph, scal, n, R, S, partial, n_blocks, out, s);
+#define GPE_K1_LAUNCH(D, B) \
+  launch<D, B>(x, V, w, bval, bval_stride, blap, blap_stride, prm, net, ph, \
+               scal, n, R, S, partial, n_blocks, out, s)
+  switch (dims[0] * 2 + (bf16 ? 1 : 0)) {
+    case 2: return GPE_K1_LAUNCH(1, false);
+    case 3: return GPE_K1_LAUNCH(1, true);
+    case 4: return GPE_K1_LAUNCH(2, false);
+    case 5: return GPE_K1_LAUNCH(2, true);
+    case 6: return GPE_K1_LAUNCH(3, false);
+    case 7: return GPE_K1_LAUNCH(3, true);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef GPE_K1_LAUNCH
 }

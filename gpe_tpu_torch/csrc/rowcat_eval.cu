@@ -1,0 +1,312 @@
+// K4 — channel-stacked ("rowcat") GPE collocation sums on Hopper.
+//
+// Replaces: gpe_tpu/pallas/rowcat_eval.py, make_rowcat_loss_eval →
+// collocation_sums (the Pallas `kernel`). Same function as K1 at one run:
+// the forward-Laplacian MLP (value, d Jacobian rows, Laplacian), then
+// u = base + s·net, Hu = −c·Δu + V·u + γ𝒩(u) and
+// S = (Σ(Hu)², Σu·Hu, Σu², Σu²w).
+//
+// Bound on this card: operations. Each hidden layer is one (C·2T = 256) x K
+// x 128 f32 GEMM per tile, ~0.16 MFLOP per point at the bench's width 100,
+// against ~24 bytes of input per point: far above the f32 CUDA-core ridge
+// (~20 FLOP/B). The FFMA peak (67 TFLOP/s) is the roof; tensor cores would
+// mean TF32 and lose f32 parity.
+//
+// Design:
+// - The TPU kernel stacks the C = d+2 channels into the rows of a
+//   (C·tile, 128) VMEM scratch so each layer is one GEMM. K1 already has that
+//   form on the card (a 128-row stacked tile, T = 128/C points). K4 stacks
+//   twice the rows: a 256-row block of 2T points (64 points at d = 2), so each
+//   weight element read from shared memory feeds twice the rows.
+// - State X[unit][m] (128 units x 256 stacked rows, stride LDS4 = 260 floats,
+//   133 KB) and one layer's weights W[k][o] (128 x LDS, 68 KB) share 200 KB
+//   of shared memory; a ping-pong state pair like the TPU's st/st2 does not
+//   fit, so each GEMM writes its output back into X in place after a
+//   barrier. Weights are streamed per layer (kept resident when the net has
+//   one hidden GEMM layer) from a copy the host pads to 128 columns (JAX's
+//   _pad_params): as soon as a GEMM has read its weights, cp.async starts
+//   copying the next layer's (or the next tile's first) into the same tile,
+//   so the copy lands during the in-place store and the activation loop
+//   instead of stalling the block between two barriers.
+// - 256 threads, each an 8 (units) x 16 (rows) register tile of the
+//   128 x 256 output; a warp's 32 threads are 4 unit groups x 8 row groups,
+//   so each float4 operand load of a warp is one 128 B (or 64 B) wavefront.
+// - Layer 0 as the TPU kernel does it: v = x·W0 + b0, the Jacobian rows of
+//   layer 0 are the rows of W0 — d small dots, no GEMM.
+// - Persistent blocks (grid ≤ SM count) walk the tiles; each block writes
+//   its four partial sums, a second launch (common.cuh reduce_partials) sums
+//   them in a fixed order in double: deterministic. Points past n load x = 0
+//   and are masked out of the sums.
+// - BF16 (compute_dtype = bf16): every GEMM operand — weights, state, x — is
+//   rounded to bf16 where it is staged (common.cuh `op`; the hidden weights'
+//   padded copy arrives rounded from the host, cp.async copying it as is);
+//   products and sums stay f32.
+#include "common.cuh"
+
+namespace gpe {
+
+constexpr int ROWS4 = 256;             // stacked rows of one K4 tile
+constexpr int LDS4 = ROWS4 + 4;        // state row stride (floats), 16 B aligned
+constexpr int STATE4_FLOATS = MAXW * LDS4;
+
+// cp.async (16 B, global → shared, bypassing registers) and its fences.
+__device__ __forceinline__ void cp_async16(float* smem_dst, const float4* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Start the copy of a hidden layer's W (K x 128, zero-padded on the host,
+// already bf16-rounded in the bf16 mode) into dst[k*LDS + o]; it lands
+// while the block does other work, and cp_async_wait_all() + a barrier
+// make it visible.
+__device__ __forceinline__ void prefetch_w(const float4* __restrict__ Wp, int K,
+                                           float* dst) {
+  for (int i = threadIdx.x; i < K * (MAXW / 4); i += NT)
+    cp_async16(dst + (i / (MAXW / 4)) * LDS + 4 * (i % (MAXW / 4)), Wp + i);
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// acc[e][f] = sum_{k < K} W[k*LDS + o(e)] * X[k*LDS4 + m(f)] over this
+// thread's units o(e) and rows m(f); then (after a barrier) written back
+// into X[o][m]. Units o ≥ the layer width have zero weight columns, so
+// their rows of X stay zero. Once every thread has read W, the copy of the
+// next weights (next_w, next_k; none when null) starts into W's tile.
+__device__ __forceinline__ void gemm_inplace(float* W, float* X, int K,
+                                             const float4* next_w, int next_k) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int o0 = 32 * (warp & 3) + 4 * (lane >> 3);    // + {0..3, 16..19}
+  const int m0 = 128 * (warp >> 2) + 4 * (lane & 7);   // + 32 g + {0..3}
+  float acc[8][16];
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+#pragma unroll
+    for (int f = 0; f < 16; ++f) acc[e][f] = 0.f;
+#pragma unroll 2
+  for (int k = 0; k < K; ++k) {
+    const float* wk = W + k * LDS + o0;
+    const float* xk = X + k * LDS4 + m0;
+    const float4 a0 = *reinterpret_cast<const float4*>(wk);
+    const float4 a1 = *reinterpret_cast<const float4*>(wk + 16);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    float bv[16];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const float4 b = *reinterpret_cast<const float4*>(xk + 32 * g);
+      bv[4 * g] = b.x; bv[4 * g + 1] = b.y; bv[4 * g + 2] = b.z; bv[4 * g + 3] = b.w;
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+#pragma unroll
+      for (int f = 0; f < 16; ++f) acc[e][f] = fmaf(av[e], bv[f], acc[e][f]);
+  }
+  __syncthreads();                     // every thread is done reading X and W
+  if (next_w) prefetch_w(next_w, next_k, W);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    float* row = X + (o0 + (e < 4 ? e : 12 + e)) * LDS4 + m0;
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      *reinterpret_cast<float4*>(row + 32 * g) =
+          make_float4(acc[e][4 * g], acc[e][4 * g + 1], acc[e][4 * g + 2],
+                      acc[e][4 * g + 3]);
+  }
+  __syncthreads();
+}
+
+template <int D, bool BF16>
+__global__ void __launch_bounds__(NT, 1)
+k4_kernel(const float* __restrict__ x, const float* __restrict__ V,
+          const float* __restrict__ w, const float* __restrict__ bval,
+          const float* __restrict__ blap, const float* __restrict__ prm,
+          const float4* __restrict__ wpad, Net net, Phys ph,
+          const float* __restrict__ scal, int n, float* __restrict__ partial) {
+  constexpr int C = D + 2, T = 2 * (MAXW / C);         // points per tile
+  static_assert(C * T <= ROWS4, "stacked rows exceed the block");
+  extern __shared__ float4 smem4[];
+  float* X = reinterpret_cast<float*>(smem4);
+  float* Wsm = X + STATE4_FLOATS;
+  __shared__ float xs[T * D];
+  __shared__ float outv[ROWS4];
+
+  const int L = net.n_layers;
+  const int n_gemm = L - 2;
+  const int n_tiles = (n + T - 1) / T;
+  const float gamma = scal[0], scale = scal[1];
+  const float b_last = prm[net.b_off[L - 1]];
+  const float* W0 = prm + net.w_off[0];
+  const float* b0 = prm + net.b_off[0];
+  const float* Wout = prm + net.w_off[L - 1];
+  const int N0 = net.dims[1], KL = net.dims[L - 1];
+
+  for (int i = threadIdx.x; i < STATE4_FLOATS; i += NT) X[i] = 0.f;
+  if (n_gemm > 0) prefetch_w(wpad, net.dims[1], Wsm);   // the first tile's W_1
+  float acc0 = 0.f, acc1 = 0.f, acc2 = 0.f, acc3 = 0.f;
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int base = tile * T;
+    __syncthreads();                   // the previous tile is done with xs, X, outv
+    for (int i = threadIdx.x; i < T * D; i += NT) {
+      const int r = i / D;
+      xs[i] = (base + r < n) ? op<BF16>(x[(size_t)base * D + i]) : 0.f;
+    }
+    __syncthreads();
+    // layer 0: v = x·W0 + b0; Jacobian rows = rows of W0; Laplacian σ″·|W0|²
+    for (int idx = threadIdx.x; idx < N0 * T; idx += NT) {
+      const int o = idx / T, r = idx % T;
+      float z = 0.f, g2 = 0.f, wv[D];
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        wv[i] = op<BF16>(W0[i * N0 + o]);
+        z = fmaf(xs[r * D + i], wv[i], z);
+        g2 = fmaf(wv[i], wv[i], g2);
+      }
+      float s0, s1, s2, s3;
+      act_quad(ph.act, z + b0[o], s0, s1, s2, s3);
+      float* xo = X + o * LDS4;
+      xo[r] = op<BF16>(s0);
+#pragma unroll
+      for (int i = 0; i < D; ++i) xo[(1 + i) * T + r] = op<BF16>(s1 * wv[i]);
+      xo[(C - 1) * T + r] = op<BF16>(s2 * g2);
+    }
+    // hidden layers: one 256-row GEMM each, then the channel recursion;
+    // W_l was prefetched during the previous layer (or tile), and the GEMM
+    // starts the copy of the next one (W_1 again for the block's next tile)
+    const float4* wl = wpad;
+    for (int l = 1; l <= n_gemm; ++l) {
+      const int K = net.dims[l], N = net.dims[l + 1];
+      cp_async_wait_all();
+      __syncthreads();                 // W_l landed for every thread; X written
+      const bool last = l == n_gemm;
+      const float4* next = last ? wpad : wl + K * (MAXW / 4);
+      const bool more = !last || tile + (int)gridDim.x < n_tiles;
+      gemm_inplace(Wsm, X, K, (n_gemm > 1 && more) ? next : nullptr,
+                   net.dims[last ? 1 : l + 1]);
+      wl += K * (MAXW / 4);
+      const float* bl = prm + net.b_off[l];
+      for (int idx = threadIdx.x; idx < N * T; idx += NT) {
+        const int o = idx / T, r = idx % T;
+        float* xo = X + o * LDS4;
+        const float z = xo[r] + bl[o];
+        float jz[D], g2 = 0.f;
+#pragma unroll
+        for (int i = 0; i < D; ++i) {
+          jz[i] = xo[(1 + i) * T + r];
+          g2 = fmaf(jz[i], jz[i], g2);
+        }
+        const float lz = xo[(C - 1) * T + r];
+        float s0, s1, s2, s3;
+        act_quad(ph.act, z, s0, s1, s2, s3);
+        xo[r] = op<BF16>(s0);
+#pragma unroll
+        for (int i = 0; i < D; ++i) xo[(1 + i) * T + r] = op<BF16>(s1 * jz[i]);
+        xo[(C - 1) * T + r] = op<BF16>(s1 * lz + s2 * g2);
+      }
+    }
+    __syncthreads();
+    // output layer (width 1): out[m] = sum_k X[k][m] W[k]
+    for (int m = threadIdx.x; m < C * T; m += NT) {
+      float s = 0.f;
+      for (int k = 0; k < KL; ++k) s = fmaf(X[k * LDS4 + m], op<BF16>(Wout[k]), s);
+      outv[m] = s;
+    }
+    __syncthreads();
+    const int r = threadIdx.x;
+    if (r < T && base + r < n) {
+      const int g = base + r;
+      const float v = outv[r] + b_last, lp = outv[(C - 1) * T + r];
+      const float u = (bval ? bval[g] : 0.f) + scale * v;
+      const float lap = (blap ? blap[g] : 0.f) + scale * lp;
+      float nl, dnl;
+      nonlin(ph, gamma, u, nl, dnl);
+      const float hu = -ph.kinetic * lap + V[g] * u + nl;
+      acc0 += hu * hu;
+      acc1 += u * hu;
+      acc2 += u * u;
+      acc3 += u * u * w[g];
+    }
+  }
+  // the block's partial sums: threads r < T hold them; reuse outv
+  cp_async_wait_all();                 // no copy outlives the block
+  __syncthreads();
+  if (threadIdx.x < T) {
+    outv[threadIdx.x] = acc0;
+    outv[T + threadIdx.x] = acc1;
+  }
+  __syncthreads();
+  if (threadIdx.x < 2) {
+    float s = 0.f;
+    for (int r = 0; r < T; ++r) s += outv[threadIdx.x * T + r];
+    partial[(size_t)blockIdx.x * 4 + threadIdx.x] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x < T) {
+    outv[threadIdx.x] = acc2;
+    outv[T + threadIdx.x] = acc3;
+  }
+  __syncthreads();
+  if (threadIdx.x < 2) {
+    float s = 0.f;
+    for (int r = 0; r < T; ++r) s += outv[threadIdx.x * T + r];
+    partial[(size_t)blockIdx.x * 4 + 2 + threadIdx.x] = s;
+  }
+}
+
+template <int D, bool BF16>
+int launch_k4(const float* x, const float* V, const float* w, const float* bval,
+              const float* blap, const float* prm, const float4* wpad, const Net& net,
+              const Phys& ph, const float* scal, int n, float* partial,
+              int n_blocks, float* out, cudaStream_t stream) {
+  const size_t smem = (size_t)(STATE4_FLOATS + TILE_FLOATS) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      k4_kernel<D, BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  k4_kernel<D, BF16><<<n_blocks, NT, smem, stream>>>(x, V, w, bval, blap, prm,
+                                                      wpad, net, ph, scal, n, partial);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  reduce_partials<<<1, 128, 0, stream>>>(partial, n_blocks, 1, 4, out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace gpe
+
+// Plain C entry point (ctypes). All pointers are device pointers except
+// `dims` (host, n_layers + 1 ints; 1 ≤ d ≤ 3, hidden widths ≤ 128, at least
+// one hidden layer, scalar output). prm: flat (W0, b0, W1, b1, ...);
+// wpad: the hidden GEMM layers' W_1 .. W_{L-2}, each zero-padded to
+// K_l x 128 and laid end to end (16 B aligned);
+// scal: [gamma, scale]; bval/blap: null or n values; partial: n_blocks·4
+// floats of scratch; n_blocks: grid size (≤ SM count, ≤ tiles); out: the 4
+// sums; bf16: 1 rounds every GEMM operand to bf16. Returns the CUDA error
+// code of the launches (0 on success).
+extern "C" int gpe_k4_sums(const float* x, const float* V, const float* w,
+                           const float* bval, const float* blap, const float* prm,
+                           const float* wpad, const int* dims, int n_layers, int n, int act,
+                           int nonlin, float p, float kinetic, const float* scal,
+                           int bf16, float* partial, int n_blocks, float* out,
+                           void* stream) {
+  using namespace gpe;
+  if (n_blocks < 1 || n_layers < 2 || n_layers > MAX_LAYERS || n < 1)
+    return (int)cudaErrorInvalidValue;
+  for (int l = 1; l < n_layers; ++l)
+    if (dims[l] < 1 || dims[l] > MAXW) return (int)cudaErrorInvalidValue;
+  const Net net = make_net(dims, n_layers);
+  const Phys ph{act, nonlin, p, kinetic};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define GPE_K4_LAUNCH(D, B) \
+  launch_k4<D, B>(x, V, w, bval, blap, prm, reinterpret_cast<const float4*>(wpad), \
+                  net, ph, scal, n, partial, n_blocks, out, s)
+  switch (dims[0] * 2 + (bf16 ? 1 : 0)) {
+    case 2: return GPE_K4_LAUNCH(1, false);
+    case 3: return GPE_K4_LAUNCH(1, true);
+    case 4: return GPE_K4_LAUNCH(2, false);
+    case 5: return GPE_K4_LAUNCH(2, true);
+    case 6: return GPE_K4_LAUNCH(3, false);
+    case 7: return GPE_K4_LAUNCH(3, true);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef GPE_K4_LAUNCH
+}

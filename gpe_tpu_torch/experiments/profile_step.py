@@ -1,4 +1,4 @@
-"""Where a fused training step's time goes on the card.
+"""Where a fused training step's (or a fused eval's) time goes on the card.
 
     python -m gpe_tpu_torch.experiments.profile_step [--steps 100]
 
@@ -6,8 +6,10 @@ Three steps: at the `gpe2d_ground_state` main shape (50,176 points,
 [2,128,128,128,1]) the default relaxed step and the exact two-kernel step
 of `fit`; at the `harmonic_paper` packed shape (six runs, modes 0–5, of
 [1,64,64,64,1] on 4,000 points) the exact run-mode step of
-`fit_ensemble_packed`. For each: the step time from CUDA events around the
-fit, then the same steps under torch.profiler, summing the device time of
+`fit_ensemble_packed`. Then two evals at the benchmark's shape
+(`gpe_tpu_torch.bench`: 50,176 points, [2,100,100,100,1], γ = 100): the
+full loss on K1 and on K4. For each: the time per step (or eval) from CUDA
+events, then the same work under torch.profiler, summing the device time of
 every kernel by name. The device-busy share is kernel time per step over
 the un-profiled step time. Prints one JSON line per step. Needs a CUDA
 device.
@@ -98,6 +100,28 @@ def profile_packed(steps: int, dev) -> dict:
     return _profile(f"packed_exact_{len(modes)}_runs", run, steps)
 
 
+def profile_eval(kernel: str, steps: int, dev) -> dict:
+    """One full-loss eval of the benchmark on K1 ("k1") or K4 ("k4")."""
+    from gpe_tpu_torch import bench
+    from gpe_tpu_torch.kernels.fused_residual import make_loss_eval
+    from gpe_tpu_torch.kernels.rowcat_eval import make_rowcat_loss_eval
+
+    spec = bench.bench_spec()
+    batch = make_batch(spec, 0, device=dev)
+    params = init_mlp(spec.layers, generator=torch.Generator().manual_seed(0),
+                      device=dev)
+    kw = dict(activation=spec.activation, p=spec.p, kinetic=spec.kinetic,
+              nonlinearity=spec.nonlinearity, bc_weight=spec.bc_weight,
+              norm_weight=spec.norm_weight)
+    ev = (make_loss_eval(spec.layers, **kw) if kernel == "k1"
+          else make_rowcat_loss_eval(spec.layers, **kw))
+
+    def run(n):
+        for _ in range(n):
+            ev(params, batch, bench.GAMMA, bench.SCALE)
+    return _profile(f"bench_eval_{kernel}", run, steps)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=100)
@@ -110,6 +134,8 @@ def main():
     for relaxed in (True, False):
         print(json.dumps(profile_mode(relaxed, args.steps, dev)), flush=True)
     print(json.dumps(profile_packed(args.steps, dev)), flush=True)
+    for kernel in ("k1", "k4"):
+        print(json.dumps(profile_eval(kernel, args.steps, dev)), flush=True)
 
 
 if __name__ == "__main__":

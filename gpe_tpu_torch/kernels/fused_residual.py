@@ -15,6 +15,13 @@ plain version loops the plain K1 over the runs. The JAX package packs M runs
 block-diagonally into one 128-lane net (`gpe_tpu/pallas/packing.py`); the
 port keeps the runs apart on a run axis of the launch, and
 `kernels/packing.py` converts between the two layouts.
+
+`compute_dtype=torch.bfloat16` (single runs only, as in JAX) is the port of
+`make_pallas_loss_eval(compute_dtype=bf16)`: every GEMM operand (weights,
+channel state, layer 0's x) is rounded to bf16, round-to-nearest-even,
+before its product; products and sums stay f32, as do biases, activations,
+the Hamiltonian and the reductions. Its plain version rounds the same
+operands with `.to(torch.bfloat16).float()` (`fwdlap_mlp_bf16`).
 """
 from __future__ import annotations
 
@@ -29,16 +36,54 @@ from gpe_tpu_torch.kernels._common import (ACT_CODES, NONLIN_CODES, base_stride,
                                            launch_geometry, pack_params, ptr,
                                            run_scalars, scale_rows)
 from gpe_tpu_torch.models.mlp import mlp_apply, run_slice
-from gpe_tpu_torch.ops.laplacian import fwdlap_mlp
+from gpe_tpu_torch.ops.laplacian import activation_triple, fwdlap_mlp
 from gpe_tpu_torch.ops.rayleigh import hamiltonian_apply
+from gpe_tpu_torch.physics.bases import ValGradLap
+
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_compute_dtype(compute_dtype) -> bool:
+    """True for the bf16 operand mode; raises on a type the kernels lack."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be torch.float32 or torch.bfloat16, "
+                         f"got {compute_dtype}")
+    return compute_dtype == torch.bfloat16
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).float()
+
+
+def fwdlap_mlp_bf16(params, x: torch.Tensor, activation: str = "tanh") -> ValGradLap:
+    """fwdlap_mlp (scalar output) with both operands of every layer's GEMM
+    rounded to bf16 first; the product and its sum run in f32, the bias and
+    the activation recursion too. Layer 0's Jacobian rows are then the
+    rounded rows of W0."""
+    act = activation_triple(activation)
+    N, d = x.shape
+    eye = torch.eye(d, dtype=x.dtype, device=x.device)
+    s = torch.cat([x[:, None, :], eye.expand(N, d, d),
+                   torch.zeros(N, 1, d, dtype=x.dtype, device=x.device)], dim=1)
+    for li, (w, b) in enumerate(params):
+        s = torch.matmul(_bf16(s), _bf16(w))
+        s = torch.cat([s[:, :1] + b, s[:, 1:]], dim=1)
+        if li < len(params) - 1:
+            val, d1, d2 = act(s[:, 0, :])
+            jac, lap = s[:, 1:1 + d, :], s[:, 1 + d, :]
+            lap = d1 * lap + d2 * torch.sum(jac * jac, dim=1)
+            s = torch.cat([val[:, None], d1[:, None] * jac, lap[:, None]], dim=1)
+    return ValGradLap(s[:, 0, 0], s[:, 1:1 + d, 0], s[:, 1 + d, 0])
 
 
 def collocation_sums_plain(params, x, V, w, gamma, scale, base_val=None,
                            base_lap=None, activation: str = "tanh",
                            p: float = 3.0, kinetic: float = 1.0,
-                           nonlinearity: str = "abs_power") -> torch.Tensor:
+                           nonlinearity: str = "abs_power",
+                           compute_dtype=torch.float32) -> torch.Tensor:
     """Plain PyTorch K1: the four sums as a (4,) tensor."""
-    net = fwdlap_mlp(params, x, activation)
+    bf16 = check_compute_dtype(compute_dtype)
+    net = (fwdlap_mlp_bf16 if bf16 else fwdlap_mlp)(params, x, activation)
     u = scale * net.value
     lap = scale * net.lap
     if base_val is not None:
@@ -79,14 +124,14 @@ def collocation_sums_runs_plain(params, x, V, w, gamma, scale, base_val=None,
 def _bind(lib):
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.gpe_k1_sums_runs.argtypes = [P, P, P, P, I, P, I, P, ctypes.POINTER(I),
-                                     I, I, I, I, F, F, P, I, I, P, I, P, P]
+                                     I, I, I, I, F, F, P, I, I, P, I, P, I, P]
     lib.gpe_k1_sums_runs.restype = I
 
 
 def _launch(params, x, V, w, scal, base_val, base_lap, activation, p, kinetic,
-            nonlinearity, n_runs):
+            nonlinearity, n_runs, bf16=False):
     """One launch of csrc/fused_residual.cu for n_runs run-stacked nets (None:
-    one net); returns the (R, 4) sums."""
+    one net; bf16: the bf16 operand mode); returns the (R, 4) sums."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     n, layers = check_inputs(params, x, V, w, base_val, base_lap, n_runs)
@@ -106,28 +151,35 @@ def _launch(params, x, V, w, scal, base_val, base_lap, activation, p, kinetic,
         ptr(base_lap), base_stride(base_lap), ptr(prm), dims_array(layers),
         len(layers) - 1, n, ACT_CODES[activation], NONLIN_CODES[nonlinearity],
         float(p), float(kinetic), ptr(scal), R, S, ptr(partial), G, ptr(out),
-        stream)
+        int(bf16), stream)
     _build.check(lib, rc, "gpe_k1_sums_runs")
     return out
 
 
 def collocation_sums(params, x, V, w, gamma, scale, base_val=None,
                      base_lap=None, activation: str = "tanh", p: float = 3.0,
-                     kinetic: float = 1.0,
-                     nonlinearity: str = "abs_power") -> torch.Tensor:
+                     kinetic: float = 1.0, nonlinearity: str = "abs_power",
+                     compute_dtype=torch.float32) -> torch.Tensor:
     """The four sums: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors. γ and scale may be numbers or device scalars."""
+    for CPU tensors. γ and scale may be numbers or device scalars. Launches
+    count in `collocation_sums.launches` (f32) and `.bf16_launches`."""
+    bf16 = check_compute_dtype(compute_dtype)
     if x.device.type == "cpu":
         return collocation_sums_plain(params, x, V, w, gamma, scale, base_val,
                                       base_lap, activation, p, kinetic,
-                                      nonlinearity)
+                                      nonlinearity, compute_dtype)
     out = _launch(params, x, V, w, run_scalars(x.device, 1, gamma, scale),
-                  base_val, base_lap, activation, p, kinetic, nonlinearity, None)
-    collocation_sums.launches += 1
+                  base_val, base_lap, activation, p, kinetic, nonlinearity, None,
+                  bf16)
+    if bf16:
+        collocation_sums.bf16_launches += 1
+    else:
+        collocation_sums.launches += 1
     return out[0]
 
 
 collocation_sums.launches = 0
+collocation_sums.bf16_launches = 0
 
 
 def collocation_sums_runs(params, x, V, w, gamma, scale, base_val=None,
@@ -164,31 +216,44 @@ def sums_to_loss(sums: torch.Tensor, n: int, norm_weight: float):
     return mu, pde, norm, cots
 
 
+def sums_to_total(params, batch, scale, sums, activation, bc_weight,
+                  norm_weight):
+    """(total, aux) of the full GPE loss from the four collocation sums and
+    a plain forward over the boundary points (K1's and K4's eval_fn)."""
+    mu, pde, norm, _ = sums_to_loss(sums, batch["x"].shape[0], norm_weight)
+    bv = scale_rows(mlp_apply(params, batch["bx"], activation), scale)
+    if "base_bval" in batch:
+        bv = batch["base_bval"] + bv
+    boundary = torch.mean(bv * bv, dim=-1)
+    total = pde + bc_weight * boundary + norm_weight * norm
+    return total, {"pde": pde, "boundary": boundary, "norm": norm, "mu": mu,
+                   "total": total}
+
+
 def make_loss_eval(layers, activation: str = "tanh", p: float = 3.0,
                    kinetic: float = 1.0, nonlinearity: str = "abs_power",
                    bc_weight: float = 10.0, norm_weight: float = 20.0,
-                   runs: bool = False):
+                   runs: bool = False, compute_dtype=torch.float32):
     """eval_fn(params, batch, gamma, scale) -> (total, aux): the full GPE
     loss with K1 for the collocation terms and a plain forward for the
     boundary term (the port of make_pallas_loss_eval). runs=True is its
     n_runs > 1 mode: run-stacked params, γ/scale per run, the batch's base
-    arrays shared or per run ((R, n), (R, B)); total and aux are (R,)."""
+    arrays shared or per run ((R, n), (R, B)); total and aux are (R,).
+    compute_dtype=torch.bfloat16 is the bf16 operand mode (single runs)."""
     if layers[-1] != 1:
         raise ValueError("scalar-output nets only")
+    if check_compute_dtype(compute_dtype) and runs:
+        raise ValueError("the run mode is f32 only, as in the JAX package")
+    kw = dict(activation=activation, p=p, kinetic=kinetic,
+              nonlinearity=nonlinearity)
+    if not runs:
+        kw["compute_dtype"] = compute_dtype
     sums_fn = collocation_sums_runs if runs else collocation_sums
 
     def eval_fn(params, batch, gamma, scale):
-        x = batch["x"]
-        sums = sums_fn(params, x, batch["V"], batch["w"], gamma, scale,
-                       batch.get("base_val"), batch.get("base_lap"), activation,
-                       p, kinetic, nonlinearity)
-        mu, pde, norm, _ = sums_to_loss(sums, x.shape[0], norm_weight)
-        bv = scale_rows(mlp_apply(params, batch["bx"], activation), scale)
-        if "base_bval" in batch:
-            bv = batch["base_bval"] + bv
-        boundary = torch.mean(bv * bv, dim=-1)
-        total = pde + bc_weight * boundary + norm_weight * norm
-        return total, {"pde": pde, "boundary": boundary, "norm": norm,
-                       "mu": mu, "total": total}
+        sums = sums_fn(params, batch["x"], batch["V"], batch["w"], gamma, scale,
+                       batch.get("base_val"), batch.get("base_lap"), **kw)
+        return sums_to_total(params, batch, scale, sums, activation, bc_weight,
+                             norm_weight)
 
     return eval_fn

@@ -54,11 +54,18 @@ def gpe_terms(u, grad, lap, bv, V, w, gamma, cfg: GPETerms) -> TermsOutput:
     del grad                       # only the Riesz term reads ∇ψ
     hu = hamiltonian_apply(u, lap, V, gamma, cfg.p, cfg.kinetic,
                            cfg.nonlinearity)
+
+    def _red(v):
+        # at least f32 accumulation: the bf16 path keeps activations and
+        # GEMMs in bf16 but every quadrature sum in f32
+        return torch.sum(v, dtype=torch.promote_types(v.dtype, torch.float32))
+
     n_pts = u.shape[0]
-    den = torch.sum(u * u)
-    mu = torch.sum(u * hu) / (den + 1e-12)
+    den = _red(u * u)
+    mu = _red(u * hu) / (den + 1e-12)
     r = hu - mu * u
-    losses = {"pde": torch.sum(r * r) / n_pts,
-              "boundary": torch.mean(bv * bv),
-              "norm": (torch.sum(u * u * w) - 1.0) ** 2}
+    losses = {"pde": _red(r * r) / n_pts,
+              "boundary": torch.mean(bv * bv, dtype=torch.promote_types(
+                  bv.dtype, torch.float32)),
+              "norm": (_red(u * u * w) - 1.0) ** 2}
     return TermsOutput(losses, mu, u)

@@ -12,6 +12,7 @@ torch.set_num_threads(1)
 
 from gpe_tpu_torch.kernels import fused_grad as k2  # noqa: E402
 from gpe_tpu_torch.kernels import fused_residual as k1  # noqa: E402
+from gpe_tpu_torch.kernels import rowcat_eval as k4  # noqa: E402
 from gpe_tpu_torch.models.mlp import params_from_numpy  # noqa: E402
 from gpe_tpu_torch.train import problem as tprob  # noqa: E402
 
@@ -37,11 +38,13 @@ def cuda_device():
                                       ((3, 32, 32, 1), 500),
                                       ((2, 64, 1), 300),
                                       ((2, 64, 64, 64, 64, 1), 600),
-                                      ((2, 128, 128, 128, 1), 4096)])
+                                      ((2, 128, 128, 128, 1), 4096),
+                                      ((2, 100, 100, 100, 1), 3000)])
 def test_kernels_match_plain_on_the_card(cuda_device, layers, n):
     """Each CUDA kernel against its plain version on the same CUDA tensors:
     ragged tails, d = 1..3, widths below 128, no hidden GEMM layer, K1's
-    streamed-weight path (3 hidden GEMMs) and the main path's net."""
+    streamed-weight path (3 hidden GEMMs), the main path's net and the
+    bench's width 100 (not a multiple of 8)."""
     rng = np.random.default_rng(0)
     d = layers[0]
     params = params_from_numpy(
@@ -171,3 +174,85 @@ def test_packed_fit_launches_each_run_kernel_once_per_step(cuda_device, monkeypa
     assert k2.collocation_grads_runs.launches == 12
     assert k1.collocation_sums_runs.launches == 13
     assert k1.collocation_sums.launches == k2.collocation_grads.launches == 0
+
+
+def _inputs(layers, n, device, seed=0):
+    rng = np.random.default_rng(seed)
+    params = params_from_numpy(
+        [(rng.normal(0.0, 1.0 / np.sqrt(k), (k, m)), rng.normal(0.0, 0.1, m))
+         for k, m in zip(layers[:-1], layers[1:])], device=device)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    return (params, t(rng.uniform(-5.0, 5.0, (n, layers[0]))),
+            t(rng.uniform(0.0, 10.0, n)), t(np.full(n, 0.01)),
+            t(rng.normal(0.0, 0.3, n)), t(rng.normal(0.0, 0.3, n)))
+
+
+K4_CASES = [((2, 100, 100, 100, 1), 3000), ((1, 64, 64, 64, 1), 1000),
+            ((3, 32, 32, 1), 500), ((2, 64, 1), 300), ((2, 128, 128, 128, 1), 4096),
+            ((1, 48, 40, 40, 40, 1), 777)]
+
+
+@pytest.mark.parametrize("layers,n", K4_CASES)
+def test_k4_matches_plain_and_k1_on_the_card(cuda_device, layers, n):
+    """K4 against its plain version and against K1 on the same inputs, f32
+    (rel 1e-4: other summation order), with base streams, d = 1..3, ragged n,
+    no hidden GEMM layer, one resident and several streamed weight layers."""
+    params, x, V, w, bval, blap = _inputs(layers, n, cuda_device)
+    for phys, base in ((("shifted_tanh", 3.0, 0.5, "abs_power"), (bval, blap)),
+                       (("tanh", 3.0, 1.0, "power"), (None, None))):
+        got = k4.collocation_sums(params, x, V, w, 5.0, 0.05, *base, *phys)
+        want = k4.collocation_sums_plain(params, x, V, w, 5.0, 0.05, *base, *phys)
+        ref = k1.collocation_sums(params, x, V, w, 5.0, 0.05, *base, *phys)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4)
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=1e-4)
+
+
+@pytest.mark.parametrize("layers,n", K4_CASES[:3])
+def test_bf16_operand_modes_match_their_plain_versions_on_the_card(cuda_device,
+                                                                  layers, n):
+    """K1 and K4 with bf16 GEMM operands against the bf16 plain version
+    (rel 1e-4, K1's f32 limit: both round the same operands; an f32 value
+    within f32 round-off of a bf16 rounding boundary may round the other way,
+    a 2^-8 change of one term), and within the bench's 0.1 of the f32 sums."""
+    params, x, V, w, bval, blap = _inputs(layers, n, cuda_device)
+    phys = ("shifted_tanh", 3.0, 0.5, "abs_power")
+    bf16 = torch.bfloat16
+    want = k1.collocation_sums_plain(params, x, V, w, 5.0, 0.05, bval, blap, *phys,
+                                     compute_dtype=bf16).cpu().numpy()
+    f32 = k1.collocation_sums_plain(params, x, V, w, 5.0, 0.05, bval, blap,
+                                    *phys).cpu().numpy()
+    for mod in (k1, k4):
+        got = mod.collocation_sums(params, x, V, w, 5.0, 0.05, bval, blap, *phys,
+                                   compute_dtype=bf16).cpu().numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-4)
+        np.testing.assert_allclose(got, f32, rtol=0.1)
+        assert not np.array_equal(got, f32)
+
+
+def test_k4_eval_refuses_ragged_counts_and_counts_launches(cuda_device):
+    """make_rowcat_loss_eval keeps JAX's tile contract (a count the tile does
+    not divide is refused, a divisible one matches K1's eval), and K4's
+    counters move once per launch, per operand type."""
+    from gpe_tpu_torch.bench import bench_spec
+    from gpe_tpu_torch.models.mlp import init_mlp
+
+    spec = bench_spec(n_side=64, layers=(2, 100, 100, 100, 1))
+    batch = tprob.make_batch(spec, 0, device=cuda_device)
+    params = init_mlp(spec.layers, generator=torch.Generator().manual_seed(0),
+                      device=cuda_device)
+    kw = dict(activation=spec.activation, p=spec.p, kinetic=spec.kinetic,
+              nonlinearity=spec.nonlinearity)
+    with pytest.raises(ValueError, match="divisible"):
+        k4.make_rowcat_loss_eval(spec.layers, **kw, tile=1792)(params, batch,
+                                                                100.0, 0.01)
+    k4.collocation_sums.launches = k4.collocation_sums.bf16_launches = 0
+    ev4 = k4.make_rowcat_loss_eval(spec.layers, **kw, tile=512)
+    ev1 = k1.make_loss_eval(spec.layers, **kw)
+    tot4, aux4 = ev4(params, batch, 100.0, 0.01)
+    tot1, _ = ev1(params, batch, 100.0, 0.01)
+    np.testing.assert_allclose(float(tot4), float(tot1), rtol=1e-4)
+    k4.make_rowcat_loss_eval(spec.layers, **kw, tile=512,
+                             compute_dtype=torch.bfloat16)(params, batch, 100.0, 0.01)
+    assert (k4.collocation_sums.launches, k4.collocation_sums.bf16_launches) == (1, 1)
+    k4.collocation_sums_plain(params, batch["x"], batch["V"], batch["w"], 1.0, 0.1, **kw)
+    assert (k4.collocation_sums.launches, k4.collocation_sums.bf16_launches) == (1, 1)
