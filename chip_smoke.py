@@ -9,14 +9,15 @@ port's three paths on the card:
 1. the 2D main path, `gpe2d_ground_state` (50,176 points, [2,128,128,128,1]
    shifted_tanh MLP): K1 and K2 held against their plain PyTorch versions
    and timed (kernel, plain version, a nested-autograd PyTorch expression of
-   the same function, CUDA events), then `train_plpinn` through the
+   the same function, CUDA events), K2's layout kernel (its padded weight
+   copies) against its plain version, then `train_plpinn` through the
    registered config with a shortened schedule plus short relaxed and exact
    fits, μ checked against the exact linear eigenvalue;
 2. the packed-ensemble path, `harmonic_paper` (4,000 points, six runs of
    [1,64,64,64,1], modes 0–5): the run-mode K1 and K2 (K3) held against
    their plain versions and against six single-run launches, timed the same
-   way, then `train_plpinn_modes_packed` over all six modes with a shortened
-   schedule, μ(γ=0) checked against 2n+1;
+   way, the layout kernel for six runs, then `train_plpinn_modes_packed` over
+   all six modes with a shortened schedule, μ(γ=0) checked against 2n+1;
 3. the fused-eval benchmark, `python -m gpe_tpu_torch.bench`'s shape (50,176
    points, [2,100,100,100,1]): K1 and K2 at width 100 against their plain
    versions; K4 (csrc/rowcat_eval.cu) against its plain version and against
@@ -41,7 +42,8 @@ import sys
 import time
 
 # Published H100 SXM HBM3 bandwidth (NVIDIA data sheet); the operations
-# peaks by GEMM operand type are gpe_tpu_torch.bench.PEAK_FLOPS.
+# peaks by GEMM operand type are gpe_tpu_torch.bench.PEAK_FLOPS (f32 rows:
+# "tf32x3", the least time for f32-parity products on this card).
 PEAK_HBM_BYTES = 3.35e12
 
 K1_TOL = 1e-4       # relative, per sum: f32, other summation order/association
@@ -87,12 +89,12 @@ def io_bytes(layers, n: int, grad: bool, runs: int = 1) -> float:
     return float(b + (4 * runs * n_params if grad else 0))
 
 
-def bound(layers, n: int, grad: bool, runs: int = 1, operands: str = "f32"):
+def bound(layers, n: int, grad: bool, runs: int = 1, operands: str = "tf32x3"):
     """(least ms, "operations" or "bytes"): the kernels' matmul FLOPs
     (`gpe_tpu_torch.bench.matmul_flops`, the count the benchmark uses) over
-    the card's peak for their GEMM operands (f32: outside the tensor cores;
-    bf16: the dense tensor-core rate), or their bytes over the HBM rate, the
-    larger."""
+    the card's peak for their GEMM operands (f32: the dense TF32 tensor-core
+    rate over three, 3xTF32's f32-parity rate; bf16: the dense bf16
+    tensor-core rate), or their bytes over the HBM rate, the larger."""
     from gpe_tpu_torch.bench import PEAK_FLOPS, matmul_flops
     t_ops = runs * matmul_flops(layers, n, grad) / PEAK_FLOPS[operands] * 1e3
     t_mem = io_bytes(layers, n, grad, runs) / PEAK_HBM_BYTES * 1e3
@@ -194,6 +196,23 @@ def _grad_err(got, want):
     return worst_abs, worst_norm
 
 
+def _check_layout(params, runs=None) -> bool:
+    """K2's layout kernel (the padded W_l, W_lᵀ copies its launch writes
+    first) against its plain version: a copy, so bit-equal."""
+    import torch
+    from gpe_tpu_torch.kernels import fused_grad as k2
+
+    got = k2.padded_weights(params, runs)
+    want = k2.padded_weights_plain(params, runs)
+    torch.cuda.synchronize()
+    equal = got.shape == want.shape and bool(torch.equal(got, want))
+    log(f"K2 layout kernel{'' if runs is None else f' ({runs} runs)'}: "
+        f"{tuple(got.shape)} floats, bit-equal to its plain version {equal}")
+    if not equal:
+        raise AssertionError("K2's layout kernel disagrees with its plain version")
+    return equal
+
+
 def phase_k2(spec, batch, params):
     import torch
     from gpe_tpu_torch.bench import nested_autograd_sums
@@ -226,6 +245,7 @@ def phase_k2(spec, batch, params):
                 raise AssertionError(f"K2 disagrees with its plain version "
                                      f"({mode}): {norm:.3e}, sums {s_rel:.3e}")
             worst_abs = max(worst_abs, ab)
+    layout_equal = _check_layout(params)
     gamma, scale = 5.0, 0.05
     sums = k1.collocation_sums(params, *args, gamma, scale, *base, **kw)
     cots = k1.sums_to_loss(sums, n, spec.norm_weight)[3]
@@ -248,8 +268,9 @@ def phase_k2(spec, batch, params):
     return {"name": "fused_grad", "route": "cuda",
             "source": "gpe_tpu_torch/csrc/fused_grad.cu",
             "replaces": "gpe_tpu/pallas/fused_grad.py:396",
-            "max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+            "max_abs_err": worst_abs, "layout_bit_equal": layout_equal, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms}
 
 
 def phase_main_path(cfg, dev):
@@ -456,6 +477,7 @@ def phase_k3_grads(spec, batch, params, gammas, scales):
             raise AssertionError(f"run-mode K2 disagrees ({mode}): plain {norm:.3e}, "
                                  f"single runs {norm_one:.3e}, sums {s_rel:.3e}")
         worst_abs = max(worst_abs, ab)
+    layout_equal = _check_layout(params, R)
     leaves = [t.detach().requires_grad_(True) for pair in params for t in pair]
     pairs = tuple((leaves[i], leaves[i + 1]) for i in range(0, len(leaves), 2))
 
@@ -479,8 +501,9 @@ def phase_k3_grads(spec, batch, params, gammas, scales):
             "source": "gpe_tpu_torch/csrc/fused_grad.cu",
             "replaces": "gpe_tpu/pallas/fused_grad.py:396",
             "max_abs_err": worst_abs, "bit_equal_to_single_runs": bit_equal,
-            "ms": ms, "single_runs_ms": singles_ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+            "layout_bit_equal": layout_equal, "ms": ms,
+            "single_runs_ms": singles_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms}
 
 
 def phase_packed_path(cfg, dev):

@@ -49,10 +49,12 @@ ITERS = 20
 DYN_N, DYN_STEPS = 256, 200
 K4_TILE = 1792                  # bench.py's first K4 tile
 # Published dense peaks of the H100 SXM (NVIDIA data sheet), by GEMM operand
-# type: f32 outside the tensor cores, the roof of the f32 kernels; bf16 on the
-# tensor cores with f32 accumulation, the roof of any kernel whose GEMM
-# operands are bf16, however it is written.
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+# type: f32 outside the tensor cores; tf32x3, the dense TF32 tensor-core rate
+# over the three TF32 products of one f32-parity product (3xTF32), the least
+# time in which the card gives f32-parity products and so the roof of the f32
+# kernels; bf16 on the tensor cores with f32 accumulation, the roof of any
+# kernel whose GEMM operands are bf16, however it is written.
+PEAK_FLOPS = {"f32": 67e12, "tf32x3": 495e12 / 3, "bf16": 989e12}
 LOSS_TOL_F32, LOSS_TOL_BF16 = 1e-3, 0.1
 
 

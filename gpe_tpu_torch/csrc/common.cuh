@@ -6,8 +6,12 @@
 // m = c*T + r (channel c, point r of the tile) and a padded row stride LDS.
 // Rows m >= C*T and units past a layer's width stay zero.
 //
-// GEMMs run on CUDA cores in f32 FFMA (tensor cores would mean TF32, ~3
-// decimal digits, which breaks parity with the f32 reference). In the bf16
+// The forward GEMMs (gemm_tile, every kernel) run on CUDA cores in f32
+// FFMA: one TF32 tensor-core product keeps ~3 decimal digits, which breaks
+// parity with the f32 reference. K2's reverse GEMMs run on tensor cores in
+// 3xTF32 instead (fused_grad.cu: each operand split in two TF32 terms,
+// three products, ~2^-21 relative per product), so f32 parity holds there
+// at the TF32 rate over three. In the bf16
 // operand mode (template flag BF16, K1 and K4 only) every GEMM operand —
 // weights, channel state, layer 0's input x — is rounded to bf16 (nearest
 // even) where it is staged; a bf16 x bf16 product is exact in f32, so FFMA
@@ -16,6 +20,8 @@
 // each own an 8 x 8 register tile of the 128 x 128 output; operands are read
 // from shared memory as float4, both "contraction-major":
 //     C[i][j] = sum_q A[q*LDS + i] * B[q*LDS + j].
+// Weights that a kernel stages more than once come from a copy padded to
+// 128 columns (K4: the host's; K2: its layout kernel's), by cp.async.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -142,23 +148,34 @@ __device__ __forceinline__ void store_tile(float* dst, const float acc[8][8]) {
   }
 }
 
-// W_l (K x N, row major, global) into a smem tile, zero-padded to 128 columns:
-//   transpose = false: dst[k*LDS + o] = W[k][o]  (k < K)
-//   transpose = true : dst[o*LDS + k] = W[k][o]  (o < N, k < 128)
-// BF16 rounds each element as it is staged (forward GEMM operands only).
+// cp.async (16 B, global → shared, bypassing registers) and its fences.
+__device__ __forceinline__ void cp_async16(float* smem_dst, const float4* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Start the copy of a weight matrix padded to K rows x 128 columns (16 B
+// aligned) into dst[k*LDS + o]; it lands while the block does other work,
+// and cp_async_wait_all() + a barrier make it visible.
+__device__ __forceinline__ void prefetch_w(const float4* __restrict__ Wp, int K,
+                                           float* dst) {
+  for (int i = threadIdx.x; i < K * (MAXW / 4); i += NT)
+    cp_async16(dst + (i / (MAXW / 4)) * LDS + 4 * (i % (MAXW / 4)), Wp + i);
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// W_l (K x N, row major, global) into a smem tile, zero-padded to 128
+// columns: dst[k*LDS + o] = W[k][o] (k < K). BF16 rounds each element as it
+// is staged (forward GEMM operands only).
 template <bool BF16 = false>
 __device__ __forceinline__ void load_w(const float* __restrict__ W, int K, int N,
-                                       float* dst, bool transpose) {
-  if (!transpose) {
-    for (int idx = threadIdx.x; idx < K * MAXW; idx += NT) {
-      const int k = idx / MAXW, o = idx % MAXW;
-      dst[k * LDS + o] = (o < N) ? op<BF16>(W[k * N + o]) : 0.f;
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < N * MAXW; idx += NT) {
-      const int k = idx / N, o = idx % N;    // consecutive threads: consecutive o
-      dst[o * LDS + k] = (k < K) ? W[k * N + o] : 0.f;
-    }
+                                       float* dst) {
+  for (int idx = threadIdx.x; idx < K * MAXW; idx += NT) {
+    const int k = idx / MAXW, o = idx % MAXW;
+    dst[k * LDS + o] = (o < N) ? op<BF16>(W[k * N + o]) : 0.f;
   }
 }
 
@@ -213,7 +230,7 @@ __device__ void forward_tile(float* X, const float* xs, const float* __restrict_
     float* Wl = stream ? wbase : wbase + (l - 1) * TILE_FLOATS;
     __syncthreads();
     if (stream) {
-      load_w<BF16>(prm + net.w_off[l], K, N, Wl, false);
+      load_w<BF16>(prm + net.w_off[l], K, N, Wl);
       __syncthreads();
     }
     float acc[8][8];

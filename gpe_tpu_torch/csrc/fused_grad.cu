@@ -12,10 +12,13 @@
 // (σ‴ rule) accumulating W̄, b̄ over all rows. It also emits this tile's share
 // of S (the relaxed mode's sums). Every run has its own γ, s, c and bases.
 //
-// Bound on this card: operations. Per tile it runs 3 GEMMs per hidden
-// layer (forward, W̄ = Inᵀ·Z̄, backprop Z̄·Wᵀ), ~0.79 MFLOP per point at
-// width 128 (~0.15 MFLOP at width 64), all f32 FFMA on CUDA cores (no TF32,
-// for parity): bound by the 67 TFLOP/s f32 peak.
+// Bound on this card: operations. Per tile it runs 3 GEMMs per hidden GEMM
+// layer, ~0.79 MFLOP per point at width 128 (~0.15 MFLOP at width 64): the
+// forward product in f32 FFMA (common.cuh gemm_tile, K1's arithmetic, so
+// K2's sums keep K1's bits), and the two reverse products, W̄ = Inᵀ·Z̄ and
+// backprop Z̄·Wᵀ, on tensor cores in 3xTF32. f32-parity products come no
+// faster on this card than the dense TF32 rate over three (495/3 = 165
+// TFLOP/s): the roof chip_smoke.py holds K2 to.
 //
 // Design:
 // - Run axis, not lane packing (see fused_residual.cu): work items are
@@ -30,9 +33,32 @@
 //   a per-BLOCK global scratch slot, reused tile after tile and item after
 //   item — G x (L−1) x 64 KB (G ≤ SM count, ~26 MB at 132), which stays in
 //   the 50 MB L2. Shared memory holds three 128 x 128 work tiles (~200 KB):
-//   the state/cotangent tile, and two for the W̄ GEMM operands (one doubles
-//   as the streamed weight tile). A 16-row all-in-smem tile was the
-//   alternative; per-block scratch keeps the GEMMs at 128 rows.
+//   X, the state/cotangent tile, and Y, Z for the GEMM operands (weights,
+//   Z̄ as [m][unit], the layer input).
+// - Weights: the layout kernel pad_weights writes, once per launch, every
+//   run's hidden W_l as [k][128] and W_lᵀ as [o][128], zero-padded, into a
+//   scratch buffer. grads_kernel stages them into Y or Z with 16 B cp.async
+//   copies, issued as soon as that tile frees and waited for (wait_all +
+//   barrier) only right before the GEMM that reads them: W₂ → Z after the
+//   previous tile's last W̄ GEMM and W₁ → Y once its W̄ has left Y
+//   (forward_tile reads W_l from Y + (l−1)·TILE); W_{L−2}ᵀ → Z right after
+//   the forward pass; W_{l−1}ᵀ → Z right after layer l's W̄ GEMM. A net with
+//   three or more hidden GEMM layers runs its own forward loop, alternating
+//   Y and Z. Per hidden layer in reverse: (a) Z̄ into X (and Y as
+//   [m][unit]); (d) backprop, reading Z = Wᵀ and X, writing X; (b) the layer
+//   input, rebuilt from the stored state, into Z; (c) W̄, reading Z and Y,
+//   then staged through Y so that the add into the item's partial row is
+//   coalesced (a row of 32 consecutive units per warp access).
+// - Reverse GEMMs (mma_gemm): mma.sync m16n8k8 TF32 with f32 accumulators.
+//   Each f32 operand a splits into hi = a rounded to TF32 and lo = a − hi;
+//   a product is hi·lo′ + lo·hi′ + hi·hi′, the small terms first, lo·lo′
+//   dropped: ~2⁻²¹ relative per product, against ~2⁻¹¹ for one TF32 term.
+//   8 warps, each a 64 x 32 block of the 128 x 128 output (4 x 4 m16n8
+//   tiles, 64 f32 accumulators a thread, as gemm_tile's 8 x 8); a warp whose
+//   block lies wholly past the layer's widths skips it, and contraction rows
+//   past P read as zero. Fragment loads at LDS = 132 fall on banks
+//   (4t + g) mod 32 (t = lane % 4, g = lane / 4): a 2-way conflict. LDS
+//   stays 132 because forward_tile shares the tiles.
 // - σ, σ′, σ″, σ‴ are recomputed from the stored z (tanhf/sincosf), not
 //   recovered from a stored σ: exact, and costs one transcendental per unit.
 // - Cross-block reduction: item (r, b) accumulates W̄, b̄ and S into its own
@@ -44,19 +70,238 @@
 
 namespace gpe {
 
+// Offsets (floats) inside one run's block of the padded-weight scratch:
+// hidden layer l's W_l as [k][128] at f_off[l], W_lᵀ as [o][128] at t_off[l].
+struct Pad {
+  int f_off[MAX_LAYERS];
+  int t_off[MAX_LAYERS];
+  int per_run;
+};
+
+inline Pad make_pad(const Net& net) {
+  Pad pad{};
+  int off = 0;
+  for (int l = 1; l <= net.n_layers - 2; ++l) {
+    pad.f_off[l] = off;
+    off += net.dims[l] * MAXW;
+    pad.t_off[l] = off;
+    off += net.dims[l + 1] * MAXW;
+  }
+  pad.per_run = off;
+  return pad;
+}
+
+// The layout kernel: run r's W_l[k][o] to out[r·per_run + f_off[l] + k·128 + o]
+// and to out[r·per_run + t_off[l] + o·128 + k], zeros past the widths.
+__global__ void pad_weights(const float* __restrict__ prm_all, Net net, Pad pad,
+                            int R, float* __restrict__ out) {
+  const long total = (long)R * pad.per_run;
+  for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < total;
+       i += (long)gridDim.x * blockDim.x) {
+    const int run = (int)(i / pad.per_run), e = (int)(i % pad.per_run);
+    int l = 1;
+    while (l < net.n_layers - 2 && e >= pad.f_off[l + 1]) ++l;
+    const int K = net.dims[l], N = net.dims[l + 1], c = e % MAXW;
+    const float* W = prm_all + (size_t)run * net.n_params + net.w_off[l];
+    float v;
+    if (e < pad.t_off[l]) {
+      const int k = (e - pad.f_off[l]) / MAXW;
+      v = (c < N) ? W[k * N + c] : 0.f;
+    } else {
+      const int o = (e - pad.t_off[l]) / MAXW;
+      v = (c < K) ? W[c * N + o] : 0.f;
+    }
+    out[i] = v;
+  }
+}
+
+__device__ __forceinline__ const float4* padded(const float* wp, int off) {
+  return reinterpret_cast<const float4*>(wp + off);
+}
+
+// The copy a tile's forward pass reads second, from run block wp, into Z:
+// W₂, or W₁ᵀ when W₁ is the only hidden GEMM layer (its backprop reads it).
+__device__ __forceinline__ void stage_second(const float* wp, const Net& net,
+                                             const Pad& pad, float* Z) {
+  if (net.n_layers == 3) prefetch_w(padded(wp, pad.t_off[1]), net.dims[2], Z);
+  else prefetch_w(padded(wp, pad.f_off[2]), net.dims[2], Z);
+}
+
+// dst[k·N + o] += T[k·LDS + o] for k < K, o < N (a W̄ block into its
+// partial row): a warp on 32 consecutive o of one row, so each access is
+// coalesced; 16 loads in flight before their stores.
+__device__ __forceinline__ void add_tile(float* __restrict__ dst, const float* T, int K,
+                                         int N) {
+  const int o = threadIdx.x & (MAXW - 1), k0 = threadIdx.x >> 7;   // 2 rows a pass
+  if (o >= N) return;
+  for (int k = k0; k < K; k += 32) {
+    float v[16];
+#pragma unroll
+    for (int u = 0; u < 16; ++u) v[u] = (k + 2 * u < K) ? dst[(k + 2 * u) * N + o] : 0.f;
+#pragma unroll
+    for (int u = 0; u < 16; ++u)
+      if (k + 2 * u < K) dst[(k + 2 * u) * N + o] = v[u] + T[(k + 2 * u) * LDS + o];
+  }
+}
+
+// forward_tile for a net of three or more hidden GEMM layers: the same
+// arithmetic, W_l staged in Y (odd l) or Z (even l). W₁ and W₂ were started
+// at the end of the previous tile; W_{l+2} starts once layer l's GEMM has
+// read its tile.
+template <int D>
+__device__ void forward_deep(float* X, const float* xs, const float* __restrict__ prm,
+                             const float* wp, const Net& net, const Pad& pad, int act,
+                             float* Y, float* Z, float* __restrict__ store) {
+  constexpr int C = D + 2, T = MAXW / C;
+  const int L = net.n_layers;
+  Net head = net;
+  head.n_layers = 2;                     // forward_tile runs layer 0 alone
+  forward_tile<D>(X, xs, prm, head, act, Y, false, store);
+  for (int l = 1; l <= L - 2; ++l) {
+    const int K = net.dims[l], N = net.dims[l + 1];
+    float* Wl = (l & 1) ? Y : Z;
+    cp_async_wait_all();
+    __syncthreads();
+    float acc[8][8];
+    gemm_tile(Wl, X, K, acc);
+    __syncthreads();
+    if (l + 2 <= L - 2) prefetch_w(padded(wp, pad.f_off[l + 2]), net.dims[l + 2], Wl);
+    store_tile(X, acc);
+    __syncthreads();
+    const float* bl = prm + net.b_off[l];
+    float* sl = store + (size_t)l * MAXW * MAXW;
+    for (int idx = threadIdx.x; idx < N * T; idx += NT) {
+      const int o = idx / T, r = idx % T;
+      float* xo = X + o * LDS;
+      const float z = xo[r] + bl[o];
+      float jz[D], g2 = 0.f;
+#pragma unroll
+      for (int i = 0; i < D; ++i) {
+        jz[i] = xo[(1 + i) * T + r];
+        g2 = fmaf(jz[i], jz[i], g2);
+      }
+      const float lz = xo[(C - 1) * T + r];
+      float s0, s1, s2, s3;
+      act_quad(act, z, s0, s1, s2, s3);
+      xo[r] = s0;
+#pragma unroll
+      for (int i = 0; i < D; ++i) xo[(1 + i) * T + r] = s1 * jz[i];
+      xo[(C - 1) * T + r] = s1 * lz + s2 * g2;
+      float* so = sl + o * MAXW;
+      so[r] = z;
+#pragma unroll
+      for (int i = 0; i < D; ++i) so[(1 + i) * T + r] = jz[i];
+      so[(C - 1) * T + r] = lz;
+    }
+  }
+  __syncthreads();
+}
+
+// a = hi + lo: hi is a rounded to TF32 (nearest, ties away: the bits of
+// cvt.rna.tf32.f32 for finite a, which sm_90a emulates in a longer
+// sequence; K2 times the same with either), lo = a − hi exactly, passed as
+// is (the tensor core reads its top 19 bits).
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(a - __uint_as_float(hi));
+}
+
+// d += a·b on one m16n8k8 TF32 tile, f32 accumulators
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The reverse GEMMs in 3xTF32, gemm_tile's operand convention:
+//   C[i][j] = Σ_{q < P} A[q·LDS + i]·B[q·LDS + j]  for i < rows, j < cols
+// (P ≤ 128; entries past rows/cols are not read, or come out 0). Warp w owns
+// rows i0 = 64(w & 1) .. +63 and columns j0 = 32(w >> 1) .. +31; lane (g, t)
+// holds acc[mt][nt] = C at rows i0 + 16mt + (g, g + 8) x columns
+// j0 + 8nt + (2t, 2t + 1). A warp whose block lies wholly past rows or cols
+// skips the work; inside a block nothing is skipped, since a guard per m16n8
+// tile serialises the tensor-core instructions. Each k8 slab issues all 16
+// tiles' hi·lo′ terms, then their lo·hi′, then hi·hi′: per accumulator the
+// small products come first, and adjacent mma.sync are independent.
+__device__ __forceinline__ void mma_gemm(const float* __restrict__ A,
+                                         const float* __restrict__ B, int P,
+                                         int rows, int cols, float acc[4][4][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int i0 = 64 * (warp & 1), j0 = 32 * (warp >> 1);
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  if (i0 >= rows || j0 >= cols) return;
+  const float* a = A + t * LDS + i0 + g;
+  const float* b = B + t * LDS + j0 + g;
+  for (int q0 = 0; q0 < P; q0 += 8) {
+    const bool in0 = q0 + t < P, in1 = q0 + t + 4 < P;   // rows q0+t, q0+t+4
+    const float* aq = a + q0 * LDS;
+    const float* bq = b + q0 * LDS;
+    uint32_t ah[4][4], al[4][4], bh[4][2], bl[4][2];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      const float* p = aq + 16 * mt;
+      split_tf32(in0 ? p[0] : 0.f, ah[mt][0], al[mt][0]);             // (g,   t)
+      split_tf32(in0 ? p[8] : 0.f, ah[mt][1], al[mt][1]);             // (g+8, t)
+      split_tf32(in1 ? p[4 * LDS] : 0.f, ah[mt][2], al[mt][2]);       // (g,   t+4)
+      split_tf32(in1 ? p[4 * LDS + 8] : 0.f, ah[mt][3], al[mt][3]);   // (g+8, t+4)
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const float* p = bq + 8 * nt;
+      split_tf32(in0 ? p[0] : 0.f, bh[nt][0], bl[nt][0]);             // (k = t,   n = g)
+      split_tf32(in1 ? p[4 * LDS] : 0.f, bh[nt][1], bl[nt][1]);       // (k = t+4, n = g)
+    }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], ah[mt], bl[nt]);
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], al[mt], bh[nt]);
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], ah[mt], bh[nt]);
+  }
+}
+
+// dst[i·LDS + j] = mma_gemm's C, the whole 128 x 128 tile (float2 stores)
+__device__ __forceinline__ void mma_store(float* dst, const float acc[4][4][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int i0 = 64 * (warp & 1) + g, j0 = 32 * (warp >> 1) + 2 * t;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      float* p = dst + (i0 + 16 * mt) * LDS + j0 + 8 * nt;
+      *reinterpret_cast<float2*>(p) = make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+      *reinterpret_cast<float2*>(p + 8 * LDS) =
+          make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+    }
+}
+
 template <int D>
 __global__ void __launch_bounds__(NT, 1)
 grads_kernel(const float* __restrict__ x, const float* __restrict__ V,
              const float* __restrict__ w, const float* __restrict__ bval,
              int bval_stride, const float* __restrict__ blap, int blap_stride,
-             const float* __restrict__ prm_all, Net net, Phys ph,
-             const float* __restrict__ scal, int n, int R, int S,
-             float* __restrict__ scratch, float* __restrict__ partial) {
+             const float* __restrict__ prm_all, const float* __restrict__ wpad,
+             Net net, Pad pad, Phys ph, const float* __restrict__ scal, int n,
+             int R, int S, float* __restrict__ scratch, float* __restrict__ partial) {
   constexpr int C = D + 2, T = MAXW / C, M = C * T;
   extern __shared__ float4 smem4[];
   float* X = reinterpret_cast<float*>(smem4);   // state / cotangents, [unit][m]
-  float* Y = X + TILE_FLOATS;                   // Z̄ as [m][unit]; weight tile
-  float* Z = Y + TILE_FLOATS;                   // layer inputs as [m][unit]
+  float* Y = X + TILE_FLOATS;                   // weights; Z̄ as [m][unit]
+  float* Z = Y + TILE_FLOATS;                   // weights; layer inputs as [m][unit]
   __shared__ float xs[T * D];
   __shared__ float outv[MAXW];
   __shared__ float vbar[T], lbar[T];
@@ -67,9 +312,16 @@ grads_kernel(const float* __restrict__ x, const float* __restrict__ V,
   const int n_tiles = (n + T - 1) / T;
   float* store = scratch + (size_t)blockIdx.x * (L - 1) * MAXW * MAXW;
   for (int i = threadIdx.x; i < 3 * TILE_FLOATS; i += NT) X[i] = 0.f;
+  __syncthreads();
+  if (L >= 3) {                        // the first tile's weights
+    const float* wp0 = wpad + (size_t)(blockIdx.x / S) * pad.per_run;
+    prefetch_w(padded(wp0, pad.f_off[1]), net.dims[1], Y);
+    stage_second(wp0, net, pad, Z);
+  }
   for (int item = blockIdx.x; item < R * S; item += gridDim.x) {
     const int run = item / S, slot = item % S;
     const float* prm = prm_all + (size_t)run * net.n_params;
+    const float* wp = wpad + (size_t)run * pad.per_run;
     const float* bv = bval ? bval + (size_t)run * bval_stride : nullptr;
     const float* bl = blap ? blap + (size_t)run * blap_stride : nullptr;
     float* part = partial + (size_t)item * len;
@@ -83,13 +335,20 @@ grads_kernel(const float* __restrict__ x, const float* __restrict__ V,
 
     for (int tile = slot; tile < n_tiles; tile += S) {
       const int base = tile * T;
+      // the run of the block's next tile, whose weights this tile prefetches
+      const int next_item = item + (int)gridDim.x;
+      const int next_run = (tile + S < n_tiles) ? run
+                           : (next_item < R * S) ? next_item / S : -1;
       __syncthreads();
       for (int i = threadIdx.x; i < T * D; i += NT) {
         const int r = i / D;
         xs[i] = (base + r < n) ? x[(size_t)base * D + i] : 0.f;
       }
-      __syncthreads();
-      forward_tile<D>(X, xs, prm, net, ph.act, Y, true, store);
+      cp_async_wait_all();
+      __syncthreads();                 // xs, and W₁, W₂ staged in Y, Z
+      if (L <= 4) forward_tile<D>(X, xs, prm, net, ph.act, Y, false, store);
+      else forward_deep<D>(X, xs, prm, wp, net, pad, ph.act, Y, Z, store);
+      if (L >= 4) prefetch_w(padded(wp, pad.t_off[L - 2]), net.dims[L - 1], Z);
       last_layer<D>(X, prm, net, outv);
 
       // ---- pointwise cotangents (and this tile's sums) ----------------------
@@ -149,9 +408,13 @@ grads_kernel(const float* __restrict__ x, const float* __restrict__ V,
         const int N = net.dims[l + 1];
         const float* pre = store + (size_t)l * MAXW * MAXW;
         __syncthreads();
+        if (l == 0 && L >= 3 && next_run >= 0)   // Y is free: the next tile's W₁
+          prefetch_w(padded(wpad + (size_t)next_run * pad.per_run, pad.f_off[1]),
+                     net.dims[1], Y);
         // (a) pre-activation cotangents Z̄ from the output cotangents in X:
         //     z̄ = σ′v̄ + σ″Σᵢjzᵢj̄ᵢ + (σ″lz + σ‴Σᵢjzᵢ²)l̄,  jz̄ᵢ = σ′j̄ᵢ + 2σ″jzᵢl̄,
-        //     lz̄ = σ′l̄.  Written to X (in place, [unit][m]) and Y ([m][unit]).
+        //     lz̄ = σ′l̄.  Written to X (in place, [unit][m]) and, above layer
+        //     0, to Y ([m][unit]; at layer 0 Y takes the next tile's W₁).
         for (int idx = threadIdx.x; idx < N * T; idx += NT) {
           const int o = idx / T, r = idx % T;
           const float* so = pre + o * MAXW;
@@ -169,17 +432,21 @@ grads_kernel(const float* __restrict__ x, const float* __restrict__ V,
           float s0, s1, s2, s3;
           act_quad(ph.act, z, s0, s1, s2, s3);
           const float zb = s1 * vb + s2 * jj + (s2 * lz + s3 * g2) * lb;
+          const float lzb = s1 * lb;
           xo[r] = zb;
-          Y[r * LDS + o] = zb;
+          xo[(C - 1) * T + r] = lzb;
+          float jzb[D];
 #pragma unroll
           for (int i = 0; i < D; ++i) {
-            const float jzb = s1 * jb[i] + 2.f * s2 * jz[i] * lb;
-            xo[(1 + i) * T + r] = jzb;
-            Y[((1 + i) * T + r) * LDS + o] = jzb;
+            jzb[i] = s1 * jb[i] + 2.f * s2 * jz[i] * lb;
+            xo[(1 + i) * T + r] = jzb[i];
           }
-          const float lzb = s1 * lb;
-          xo[(C - 1) * T + r] = lzb;
-          Y[((C - 1) * T + r) * LDS + o] = lzb;
+          if (l > 0) {
+            Y[r * LDS + o] = zb;
+#pragma unroll
+            for (int i = 0; i < D; ++i) Y[((1 + i) * T + r) * LDS + o] = jzb[i];
+            Y[((C - 1) * T + r) * LDS + o] = lzb;
+          }
         }
         if (l == 0) {
           // layer 0: input = (x, identity Jacobian, zero Laplacian), so
@@ -203,10 +470,19 @@ grads_kernel(const float* __restrict__ x, const float* __restrict__ V,
           }
           break;
         }
+        const int K = net.dims[l];
+        cp_async_wait_all();
+        __syncthreads();               // Z̄ in X and Y; W_lᵀ staged in Z
+        // (d) backprop to layer l-1's output: X[k][m] = Σ_o W[k][o] Z̄[o][m]
+        {
+          float acc[4][4][4];
+          mma_gemm(Z, X, N, K, M, acc);
+          __syncthreads();
+          mma_store(X, acc);
+        }
         // (b) this layer's input = layer l-1's output, rebuilt from its stored
         //     pre-activation state, as Z[m][unit]
         {
-          const int K = net.dims[l];
           const float* prev = store + (size_t)(l - 1) * MAXW * MAXW;
           for (int idx = threadIdx.x; idx < K * T; idx += NT) {
             const int k = idx / T, r = idx % T;
@@ -228,36 +504,23 @@ grads_kernel(const float* __restrict__ x, const float* __restrict__ V,
         __syncthreads();
         // (c) W̄_l[k][o] += Σ_m In[m][k] Z̄[m][o];  b̄_l[o] += Σ_r z̄[r][o]
         {
-          const int K = net.dims[l];
-          float acc[8][8];
-          gemm_tile(Z, Y, M, acc);
-          const int ti = threadIdx.x >> 4, tj = threadIdx.x & 15;
-          float* pw = part + net.w_off[l];
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const int k = frag(ti, i);
-            if (k >= K) continue;
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              const int o = frag(tj, j);
-              if (o < N) pw[k * N + o] += acc[i][j];
-            }
-          }
+          float acc[4][4][4];
+          mma_gemm(Z, Y, M, K, N, acc);
           for (int o = threadIdx.x; o < N; o += NT) {
             float s = 0.f;
             for (int r = 0; r < T; ++r) s += Y[r * LDS + o];
             part[net.b_off[l] + o] += s;
           }
-        }
-        __syncthreads();
-        // (d) backprop to layer l-1's output: X[k][m] = Σ_o W[k][o] Z̄[o][m]
-        load_w(prm + net.w_off[l], net.dims[l], N, Y, true);   // Y[o][k] = W[k][o]
-        __syncthreads();
-        {
-          float acc[8][8];
-          gemm_tile(Y, X, N, acc);
+          __syncthreads();             // Y and Z are free
+          // Z takes the next weights at once; Y stages this tile's W̄ for a
+          // coalesced add into the partial row (at layer 1, Y's copy of the
+          // next tile's W₁ starts after the next barrier)
+          if (l > 1) prefetch_w(padded(wp, pad.t_off[l - 1]), net.dims[l], Z);
+          else if (next_run >= 0) stage_second(wpad + (size_t)next_run * pad.per_run,
+                                               net, pad, Z);
+          mma_store(Y, acc);
           __syncthreads();
-          store_tile(X, acc);
+          add_tile(part + net.w_off[l], Y, K, N);
         }
       }
     }
@@ -275,21 +538,35 @@ grads_kernel(const float* __restrict__ x, const float* __restrict__ V,
       part[net.n_params + threadIdx.x] = s;
     }
   }
+  cp_async_wait_all();                 // no copy outlives the block
+}
+
+int launch_pad(const float* prm, const Net& net, const Pad& pad, int R, float* wpad,
+               cudaStream_t stream) {
+  const long total = (long)R * pad.per_run;
+  if (total == 0) return 0;
+  const long blocks = (total + 255) / 256;
+  pad_weights<<<(int)(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(prm, net, pad,
+                                                                      R, wpad);
+  return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch(const float* x, const float* V, const float* w, const float* bval,
            int bval_stride, const float* blap, int blap_stride, const float* prm,
            const Net& net, const Phys& ph, const float* scal, int n, int R,
-           int S, float* scratch, float* partial, int n_blocks, float* out,
-           cudaStream_t stream) {
+           int S, float* wpad, float* scratch, float* partial, int n_blocks,
+           float* out, cudaStream_t stream) {
+  const Pad pad = make_pad(net);
+  int rc = launch_pad(prm, net, pad, R, wpad, stream);
+  if (rc) return rc;
   const size_t smem = (size_t)3 * TILE_FLOATS * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       grads_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   grads_kernel<D><<<n_blocks, NT, smem, stream>>>(
-      x, V, w, bval, bval_stride, blap, blap_stride, prm, net, ph, scal, n, R,
-      S, scratch, partial);
+      x, V, w, bval, bval_stride, blap, blap_stride, prm, wpad, net, pad, ph, scal,
+      n, R, S, scratch, partial);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int len = net.n_params + 4;
@@ -299,31 +576,49 @@ int launch(const float* x, const float* V, const float* w, const float* bval,
 
 }  // namespace gpe
 
-// Plain C entry point (ctypes). Device pointers except `dims` (host).
-// prm: R x n_params (run-major flat (W0, b0, W1, b1, ...) per run); scal:
-// R x [gamma, scale, c0, c1, c2, c3]; bval/blap: null, or run r's n values at
-// +r·stride (stride 0: shared). S: slots per run (min(SM count, tiles));
-// n_blocks: grid size (≤ SM count); scratch: n_blocks x (n_layers-1) x 128 x
-// 128 floats; partial: R·S x (n_params + 4) floats; out: R rows of n_params
-// gradient floats in the flat layout followed by the run's 4 sums. Returns
-// the CUDA error code of the launches.
+// Plain C entry points (ctypes). Device pointers except `dims` (host).
+// prm: R x n_params (run-major flat (W0, b0, W1, b1, ...) per run).
+//
+// gpe_k2_pad_weights: the layout kernel alone. wpad: R blocks, each the
+// hidden GEMM layers l = 1..n_layers-2 in order, W_l as [dims[l]][128] then
+// W_lᵀ as [dims[l+1]][128], zero-padded (R·Σ_l (dims[l] + dims[l+1])·128
+// floats, 16 B aligned).
+extern "C" int gpe_k2_pad_weights(const float* prm, const int* dims, int n_layers,
+                                  int R, float* wpad, void* stream) {
+  using namespace gpe;
+  if (R < 1 || n_layers < 1 || n_layers > MAX_LAYERS) return (int)cudaErrorInvalidValue;
+  const Net net = make_net(dims, n_layers);
+  return launch_pad(prm, net, make_pad(net), R, wpad, static_cast<cudaStream_t>(stream));
+}
+
+// gpe_k2_grads_runs: the layout kernel into wpad, then the gradient kernel
+// and the reduction. scal: R x [gamma, scale, c0, c1, c2, c3]; bval/blap:
+// null, or run r's n values at +r·stride (stride 0: shared). S: slots per
+// run (min(SM count, tiles)); n_blocks: grid size (≤ SM count); scratch:
+// n_blocks x (n_layers-1) x 128 x 128 floats; partial: R·S x (n_params + 4)
+// floats; out: R rows of n_params gradient floats in the flat layout
+// followed by the run's 4 sums. Returns the CUDA error code of the launches.
 extern "C" int gpe_k2_grads_runs(const float* x, const float* V, const float* w,
                                  const float* bval, int bval_stride,
                                  const float* blap, int blap_stride,
                                  const float* prm, const int* dims, int n_layers,
                                  int n, int act, int nonlin, float p,
                                  float kinetic, const float* scal, int R, int S,
-                                 float* scratch, float* partial, int n_blocks,
-                                 float* out, void* stream) {
+                                 float* wpad, float* scratch, float* partial,
+                                 int n_blocks, float* out, void* stream) {
   using namespace gpe;
   if (R < 1 || S < 1 || n_blocks < 1) return (int)cudaErrorInvalidValue;
   const Net net = make_net(dims, n_layers);
   const Phys ph{act, nonlin, p, kinetic};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define GPE_K2_LAUNCH(D)                                                          \
+  launch<D>(x, V, w, bval, bval_stride, blap, blap_stride, prm, net, ph, scal, n, \
+            R, S, wpad, scratch, partial, n_blocks, out, s)
   switch (dims[0]) {
-    case 1: return launch<1>(x, V, w, bval, bval_stride, blap, blap_stride, prm, net, ph, scal, n, R, S, scratch, partial, n_blocks, out, s);
-    case 2: return launch<2>(x, V, w, bval, bval_stride, blap, blap_stride, prm, net, ph, scal, n, R, S, scratch, partial, n_blocks, out, s);
-    case 3: return launch<3>(x, V, w, bval, bval_stride, blap, blap_stride, prm, net, ph, scal, n, R, S, scratch, partial, n_blocks, out, s);
+    case 1: return GPE_K2_LAUNCH(1);
+    case 2: return GPE_K2_LAUNCH(2);
+    case 3: return GPE_K2_LAUNCH(3);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef GPE_K2_LAUNCH
 }

@@ -68,7 +68,7 @@ sums_kernel(const float* __restrict__ x, const float* __restrict__ V,
     if (resident)
       for (int l = 1; l <= L - 2; ++l)
         load_w<BF16>(prm_r + net.w_off[l], net.dims[l], net.dims[l + 1],
-                     Wsm + (l - 1) * TILE_FLOATS, false);
+                     Wsm + (l - 1) * TILE_FLOATS);
     const float gamma = scal[2 * run], scale = scal[2 * run + 1];
     const float b_last = prm_r[net.b_off[L - 1]];
     float acc0 = 0.f, acc1 = 0.f, acc2 = 0.f, acc3 = 0.f;

@@ -49,26 +49,6 @@ constexpr int ROWS4 = 256;             // stacked rows of one K4 tile
 constexpr int LDS4 = ROWS4 + 4;        // state row stride (floats), 16 B aligned
 constexpr int STATE4_FLOATS = MAXW * LDS4;
 
-// cp.async (16 B, global → shared, bypassing registers) and its fences.
-__device__ __forceinline__ void cp_async16(float* smem_dst, const float4* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Start the copy of a hidden layer's W (K x 128, zero-padded on the host,
-// already bf16-rounded in the bf16 mode) into dst[k*LDS + o]; it lands
-// while the block does other work, and cp_async_wait_all() + a barrier
-// make it visible.
-__device__ __forceinline__ void prefetch_w(const float4* __restrict__ Wp, int K,
-                                           float* dst) {
-  for (int i = threadIdx.x; i < K * (MAXW / 4); i += NT)
-    cp_async16(dst + (i / (MAXW / 4)) * LDS + 4 * (i % (MAXW / 4)), Wp + i);
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
 // acc[e][f] = sum_{k < K} W[k*LDS + o(e)] * X[k*LDS4 + m(f)] over this
 // thread's units o(e) and rows m(f); then (after a barrier) written back
 // into X[o][m]. Units o ≥ the layer width have zero weight columns, so

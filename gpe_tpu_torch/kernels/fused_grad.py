@@ -10,7 +10,11 @@ tensors; on CPU tensors it takes `collocation_grads_plain`, autograd of
 Σ c_k·S_k(θ) over the plain K1 sums — the same function, independent of the
 kernel's hand-derived reverse. `collocation_grads_runs` does the same for R
 run-stacked nets in one launch, with (R, 4) cotangents: its plain version is
-autograd of Σ_r Σ_k c_{r,k}·S_{r,k} over the plain run-mode sums.
+autograd of Σ_r Σ_k c_{r,k}·S_{r,k} over the plain run-mode sums. Each
+launch first runs the kernel's layout kernel, which writes every run's
+hidden weights padded to 128 columns, W_l and W_lᵀ, into a scratch buffer
+for the gradient kernel's cp.async copies (`padded_weights` runs it alone;
+`padded_weights_plain` is its plain version).
 
 Around it, as in the JAX package:
 - `vag` (exact): K1 for S and c, then K2 with those c;
@@ -28,11 +32,12 @@ import ctypes
 import torch
 
 from gpe_tpu_torch.kernels import _build
-from gpe_tpu_torch.kernels._common import (ACT_CODES, NONLIN_CODES, base_stride,
-                                           check_inputs, device_buffer,
-                                           dims_array, kernel_supports,
-                                           launch_geometry, pack_params, ptr,
-                                           run_scalars, scale_rows, unpack_flat)
+from gpe_tpu_torch.kernels._common import (ACT_CODES, MAXW, NONLIN_CODES,
+                                           base_stride, check_inputs,
+                                           device_buffer, dims_array,
+                                           kernel_supports, launch_geometry,
+                                           pack_params, ptr, run_scalars,
+                                           scale_rows, unpack_flat)
 from gpe_tpu_torch.kernels.fused_residual import (collocation_sums,
                                                   collocation_sums_plain,
                                                   collocation_sums_runs,
@@ -83,8 +88,46 @@ def collocation_grads_runs_plain(params, x, V, w, gamma, scale, cots,
 def _bind(lib):
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.gpe_k2_grads_runs.argtypes = [P, P, P, P, I, P, I, P, ctypes.POINTER(I),
-                                      I, I, I, I, F, F, P, I, I, P, P, I, P, P]
+                                      I, I, I, I, F, F, P, I, I, P, P, P, I, P, P]
     lib.gpe_k2_grads_runs.restype = I
+    lib.gpe_k2_pad_weights.argtypes = [P, ctypes.POINTER(I), I, I, P, P]
+    lib.gpe_k2_pad_weights.restype = I
+
+
+def padded_floats(layers) -> int:
+    """Floats per run of K2's padded-weight buffer: each hidden GEMM layer
+    W_l (l = 1..L-2) as (K, 128) and as W_lᵀ (N, 128)."""
+    return sum((k + m) * MAXW for k, m in zip(layers[1:-2], layers[2:-1]))
+
+
+def padded_weights_plain(params, n_runs: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of csrc/fused_grad.cu's layout kernel: per run,
+    each hidden GEMM layer W_l (l = 1..L-2) zero-padded to (K, 128) columns,
+    then W_lᵀ zero-padded to (N, 128), laid end to end: (padded_floats,) for
+    one net, (R, padded_floats) for run-stacked params."""
+    lead = () if n_runs is None else (n_runs,)
+    parts = [torch.nn.functional.pad(A, (0, MAXW - A.shape[-1])).reshape(*lead, -1)
+             for W, _ in params[1:-1] for A in (W, W.transpose(-1, -2))]
+    return torch.cat(parts, dim=-1) if parts else params[0][0].new_zeros(*lead, 0)
+
+
+def padded_weights(params, n_runs: int | None = None) -> torch.Tensor:
+    """K2's layout kernel alone (the launch `collocation_grads` makes first)
+    on CUDA tensors, `padded_weights_plain` on CPU tensors."""
+    dev = params[0][0].device
+    if dev.type == "cpu":
+        return padded_weights_plain(params, n_runs)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    layers = [params[0][0].shape[-2]] + [W.shape[-1] for W, _ in params]
+    lib = _build.library("fused_grad", _bind)
+    R = n_runs or 1
+    out = torch.empty((R, padded_floats(layers)), dtype=torch.float32, device=dev)
+    rc = lib.gpe_k2_pad_weights(ptr(pack_params(params, n_runs)), dims_array(layers),
+                                len(layers) - 1, R, ptr(out),
+                                torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "gpe_k2_pad_weights")
+    return out if n_runs else out[0]
 
 
 def _launch(params, x, V, w, scal, base_val, base_lap, activation, p, kinetic,
@@ -104,6 +147,7 @@ def _launch(params, x, V, w, scal, base_val, base_lap, activation, p, kinetic,
     prm = pack_params(params, n_runs)
     n_params = prm.shape[-1]
     S, G = launch_geometry(dev, n, layers[0], R)
+    wpad = device_buffer(dev, R * padded_floats(layers), "K2 padded weights")
     scratch = device_buffer(dev, G * (len(layers) - 2) * 128 * 128,
                             "K2 forward-state scratch")
     partial = device_buffer(dev, R * S * (n_params + 4), "K2 partial gradients")
@@ -113,8 +157,8 @@ def _launch(params, x, V, w, scal, base_val, base_lap, activation, p, kinetic,
         ptr(x), ptr(V), ptr(w), ptr(base_val), base_stride(base_val),
         ptr(base_lap), base_stride(base_lap), ptr(prm), dims_array(layers),
         len(layers) - 1, n, ACT_CODES[activation], NONLIN_CODES[nonlinearity],
-        float(p), float(kinetic), ptr(scal), R, S, ptr(scratch), ptr(partial), G,
-        ptr(out), stream)
+        float(p), float(kinetic), ptr(scal), R, S, ptr(wpad), ptr(scratch),
+        ptr(partial), G, ptr(out), stream)
     _build.check(lib, rc, "gpe_k2_grads_runs")
     return out, layers
 

@@ -216,3 +216,65 @@ def test_kernel_input_checks_reject_malformed_input():
                  (bad_chain, x, V, w, None, None)):
         with pytest.raises(ValueError):
             check_inputs(*args)
+
+
+@pytest.mark.parametrize("runs", [None, 6])
+@pytest.mark.parametrize("width", [100, 128])
+@pytest.mark.parametrize("d", [1, 2, 3])
+def test_padded_weights_plain_layout(d, width, runs):
+    """K2's padded-weight layout (plain version of the layout kernel): per run,
+    each hidden GEMM layer's W_l as (K, 128) then W_lᵀ as (N, 128), zero past
+    the widths — held to the weights of pack_params/unpack_flat and to the
+    JAX package's _pad_params (128 x 128 for these widths)."""
+    from gpe_tpu.pallas.fused_residual import _pad_params
+    from gpe_tpu_torch.kernels._common import pack_params, unpack_flat
+
+    layers = (d, width, width, width, 1)
+    rng = np.random.default_rng(d * width)
+    lead = () if runs is None else (runs,)
+    np_params = [(rng.normal(size=lead + (k, m)), rng.normal(size=lead + (m,)))
+                 for k, m in zip(layers[:-1], layers[1:])]
+    params = params_from_numpy(np_params, device="cpu")
+    got = k2.padded_weights(params, runs)
+    assert got.shape == lead + (k2.padded_floats(layers),)
+    assert got.shape[-1] == 2 * 2 * width * 128
+    flat = unpack_flat(pack_params(params, runs), layers)
+    for r in range(runs or 1):
+        row = got[r] if runs else got
+        jax_padded = _pad_params([(w[r] if runs else w, b[r] if runs else b)
+                                  for w, b in np_params])
+        off = 0
+        for li in (1, 2):
+            W = flat[li][0][r] if runs else flat[li][0]
+            K, N = W.shape
+            fwd = row[off:off + K * 128].reshape(K, 128)
+            off += K * 128
+            bwd = row[off:off + N * 128].reshape(N, 128)
+            off += N * 128
+            assert torch.equal(fwd[:, :N], W) and not fwd[:, N:].any()
+            assert torch.equal(bwd[:, :K], W.t()) and not bwd[:, K:].any()
+            jw = np.asarray(jax_padded[li][0])
+            np.testing.assert_array_equal(fwd.numpy(), jw[:K])
+            np.testing.assert_array_equal(bwd.numpy(), jw.T[:N])
+        assert off == row.shape[0]
+
+
+@pytest.mark.parametrize("variant", ["as_is", "ffma_reverse", "tf32x1", "cvt_rna",
+                                     "tile_guards", "fragment_epilogue", "first_form",
+                                     "as_is+clocks", "fragment_epilogue+clocks"])
+def test_k2_variant_patches_apply_to_the_kernel_source(variant, tmp_path):
+    """experiments/k2_variants.py's patches of csrc/fused_grad.cu still find
+    their anchor text, each the expected number of times, and change the
+    source (the build and the timing need the card)."""
+    from gpe_tpu_torch.experiments import k2_variants as kv
+    from gpe_tpu_torch.kernels import _build
+
+    name, _, clocked = variant.partition("+")
+    patches = [x for p in kv.VARIANTS[name][0] for x in kv.PATCHES[p]]
+    patches += kv.CLOCK_PATCH if clocked else []
+    kv.write_variant(variant, patches, tmp_path)
+    src = (_build.CSRC / "fused_grad.cu").read_text()
+    out = (tmp_path / variant / "fused_grad.cu").read_text()
+    assert (out == src) == (not patches)
+    if clocked:
+        assert "gpe_k2_clocks" in out
