@@ -26,8 +26,10 @@ port's three paths on the card:
    propagator against the FFT one on a 256² grid; then the benchmark itself,
    in-process with fewer repetitions, its JSON on a line of its own.
 
-Each path's launch counters are set to 0 just before it and read just
-after. Any failure exits non-zero. Output: the card's name and power limit,
+A kernel row's "ms" is device time: CUDA events around replays of a CUDA
+graph of one wrapper call; "call_ms" is back-to-back calls, host work
+included. Each path's launch counters are set to 0 just before it and read
+just after. Any failure exits non-zero. Output: the card's name and power limit,
 one {"kernels": [...]} line, and a last line {"ok": true, "device": {...}}.
 
 Needs a CUDA device; it imports nothing of JAX or of the gpe_tpu package.
@@ -78,6 +80,18 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn, iters: int):
+    """(ms, call_ms) of a kernel wrapper's call: the device time per call,
+    from CUDA-graph replays of one call (`bench.graph_ms`: the host work of
+    the wrapper left out; its few tensor ops are in), and the time per
+    back-to-back call by CUDA events, host work included (the run-mode calls
+    are host-bound)."""
+    import torch
+    from gpe_tpu_torch.bench import graph_ms
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return graph_ms(fn, iters, dev), time_ms(fn, iters)
 
 
 def io_bytes(layers, n: int, grad: bool, runs: int = 1) -> float:
@@ -163,7 +177,8 @@ def phase_k1(spec, batch, params):
     plain = k1.collocation_sums_plain(params, *args, gamma, scale, *base, **kw)
     log(f"K1 nested-autograd sums vs plain: max rel "
         f"{float(((nested.detach() - plain).abs() / plain.abs()).max()):.2e}")
-    ms = time_ms(lambda: k1.collocation_sums(params, *args, gamma, scale, *base, **kw), 20)
+    ms, call_ms = kernel_ms(
+        lambda: k1.collocation_sums(params, *args, gamma, scale, *base, **kw), 20)
     plain_ms = time_ms(lambda: k1.collocation_sums_plain(params, *args, gamma, scale,
                                                          *base, **kw), 10)
     lib_ms = time_ms(lambda: nested_autograd_sums(params, batch, gamma, scale,
@@ -172,13 +187,13 @@ def phase_k1(spec, batch, params):
                                                   spec.nonlinearity), 5)
     n = batch["x"].shape[0]
     b_ms, b_by = bound(spec.layers, n, grad=False)
-    log(f"K1 timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, nested autograd "
-        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    log(f"K1 timing: kernel {ms:.4f} ms (per call {call_ms:.4f}), plain {plain_ms:.4f} "
+        f"ms, nested autograd {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return {"name": "fused_residual", "route": "cuda",
             "source": "gpe_tpu_torch/csrc/fused_residual.cu",
             "replaces": "gpe_tpu/pallas/fused_residual.py:246",
             "max_abs_err": worst_abs, "max_rel_err": worst_rel, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms}
 
 
@@ -257,19 +272,19 @@ def phase_k2(spec, batch, params):
                                  spec.p, spec.kinetic, spec.nonlinearity)
         return torch.autograd.grad(torch.sum(cots * s), leaves)
 
-    ms = time_ms(lambda: k2.collocation_grads(params, *args, gamma, scale, cots,
-                                              *base, **kw), 20)
+    ms, call_ms = kernel_ms(lambda: k2.collocation_grads(params, *args, gamma, scale,
+                                                         cots, *base, **kw), 20)
     plain_ms = time_ms(lambda: k2.collocation_grads_plain(
         params, *args, gamma, scale, cots, *base, **kw), 10)
     lib_ms = time_ms(library, 3)
     b_ms, b_by = bound(spec.layers, n, grad=True)
-    log(f"K2 timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, nested autograd "
-        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    log(f"K2 timing: kernel {ms:.4f} ms (per call {call_ms:.4f}), plain {plain_ms:.4f} "
+        f"ms, nested autograd {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return {"name": "fused_grad", "route": "cuda",
             "source": "gpe_tpu_torch/csrc/fused_grad.cu",
             "replaces": "gpe_tpu/pallas/fused_grad.py:396",
             "max_abs_err": worst_abs, "layout_bit_equal": layout_equal, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms}
 
 
@@ -411,8 +426,8 @@ def phase_k3_sums(spec, batch, params, gammas, scales):
     if not torch.isfinite(got).all() or rel > K1_TOL or rel_single > K1_TOL:
         raise AssertionError(f"run-mode K1 disagrees: plain {rel:.3e}, "
                              f"single runs {rel_single:.3e}")
-    ms = time_ms(lambda: k1.collocation_sums_runs(params, *args, **kw), 50)
-    singles_ms = time_ms(lambda: [k1.collocation_sums(
+    ms, call_ms = kernel_ms(lambda: k1.collocation_sums_runs(params, *args, **kw), 50)
+    singles_ms, _ = kernel_ms(lambda: [k1.collocation_sums(
         run_slice(params, r), batch["x"], batch["V"], batch["w"], gammas[r],
         scales[r], batch["base_val"][r], batch["base_lap"][r], **kw)
         for r in range(R)], 20)
@@ -420,14 +435,14 @@ def phase_k3_sums(spec, batch, params, gammas, scales):
     lib_ms = time_ms(lambda: _nested_runs(params, batch, gammas, scales, spec), 5)
     n = batch["x"].shape[0]
     b_ms, b_by = bound(spec.layers, n, grad=False, runs=R)
-    log(f"K3 sums timing: kernel {ms:.4f} ms, {R} single-run K1 launches "
-        f"{singles_ms:.4f} ms, plain {plain_ms:.4f} ms, nested autograd "
+    log(f"K3 sums timing: kernel {ms:.4f} ms (per call {call_ms:.4f}), {R} single-run "
+        f"K1 launches {singles_ms:.4f} ms, plain {plain_ms:.4f} ms, nested autograd "
         f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return {"name": "fused_residual_runs", "route": "cuda",
             "source": "gpe_tpu_torch/csrc/fused_residual.cu",
             "replaces": "gpe_tpu/pallas/fused_residual.py:246",
             "max_abs_err": float(ab.max()), "max_rel_err": rel,
-            "bit_equal_to_single_runs": bit_equal, "ms": ms,
+            "bit_equal_to_single_runs": bit_equal, "ms": ms, "call_ms": call_ms,
             "single_runs_ms": singles_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms}
 
@@ -485,8 +500,9 @@ def phase_k3_grads(spec, batch, params, gammas, scales):
         s = _nested_runs(pairs, batch, gammas, scales, spec)
         return torch.autograd.grad(torch.sum(cots * s), leaves)
 
-    ms = time_ms(lambda: k2.collocation_grads_runs(params, *args, cots, *base, **kw), 50)
-    singles_ms = time_ms(lambda: [k2.collocation_grads(
+    ms, call_ms = kernel_ms(
+        lambda: k2.collocation_grads_runs(params, *args, cots, *base, **kw), 50)
+    singles_ms, _ = kernel_ms(lambda: [k2.collocation_grads(
         run_slice(params, r), batch["x"], batch["V"], batch["w"], gammas[r],
         scales[r], cots[r], batch["base_val"][r], batch["base_lap"][r], **kw)
         for r in range(R)], 20)
@@ -494,14 +510,14 @@ def phase_k3_grads(spec, batch, params, gammas, scales):
         params, *args, cots, *base, **kw), 10)
     lib_ms = time_ms(library, 3)
     b_ms, b_by = bound(spec.layers, n, grad=True, runs=R)
-    log(f"K3 grads timing: kernel {ms:.4f} ms, {R} single-run K2 launches "
-        f"{singles_ms:.4f} ms, plain {plain_ms:.4f} ms, nested autograd "
+    log(f"K3 grads timing: kernel {ms:.4f} ms (per call {call_ms:.4f}), {R} single-run "
+        f"K2 launches {singles_ms:.4f} ms, plain {plain_ms:.4f} ms, nested autograd "
         f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return {"name": "fused_grad_runs", "route": "cuda",
             "source": "gpe_tpu_torch/csrc/fused_grad.cu",
             "replaces": "gpe_tpu/pallas/fused_grad.py:396",
             "max_abs_err": worst_abs, "bit_equal_to_single_runs": bit_equal,
-            "layout_bit_equal": layout_equal, "ms": ms,
+            "layout_bit_equal": layout_equal, "ms": ms, "call_ms": call_ms,
             "single_runs_ms": singles_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms}
 
@@ -648,18 +664,19 @@ def phase_k4(spec, batch, params, label):
         worst_abs = max(worst_abs, float((got - want).abs().max()))
         worst_rel = max(worst_rel, rel)
     args, kw = _sums_args(spec, batch, 5.0, 0.05)
-    ms = time_ms(lambda: k4.collocation_sums(params, *args, **kw), 20)
-    k1_ms = time_ms(lambda: k1.collocation_sums(params, *args, **kw), 20)
+    ms, call_ms = kernel_ms(lambda: k4.collocation_sums(params, *args, **kw), 20)
+    k1_ms, _ = kernel_ms(lambda: k1.collocation_sums(params, *args, **kw), 20)
     plain_ms = time_ms(lambda: k4.collocation_sums_plain(params, *args, **kw), 10)
     lib_ms = time_ms(lambda: nested_autograd_sums(params, batch, 5.0, 0.05, **kw), 5)
     b_ms, b_by = bound(spec.layers, batch["x"].shape[0], grad=False)
-    log(f"K4 {label} timing: kernel {ms:.4f} ms, K1 {k1_ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, nested autograd {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by})")
+    log(f"K4 {label} timing: kernel {ms:.4f} ms (per call {call_ms:.4f}), K1 "
+        f"{k1_ms:.4f} ms, plain {plain_ms:.4f} ms, nested autograd {lib_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
     return {"name": "rowcat_eval", "route": "cuda",
             "source": "gpe_tpu_torch/csrc/rowcat_eval.cu",
             "replaces": "gpe_tpu/pallas/rowcat_eval.py:180",
             "max_abs_err": worst_abs, "max_rel_err": worst_rel, "ms": ms,
+            "call_ms": call_ms,
             "k1_ms": k1_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms}
 
@@ -713,20 +730,21 @@ def phase_bf16(spec, batch, params):
         if not loss_rel < LOSS_TOL_BF16:
             raise AssertionError(f"{name} loss off the f32 loss: {loss_rel:.3e}")
         args, _ = _sums_args(spec, batch, 5.0, 0.05)
-        ms = time_ms(lambda: mod.collocation_sums(params, *args, **kw,
-                                                  compute_dtype=bf16), 20)
+        ms, call_ms = kernel_ms(lambda: mod.collocation_sums(params, *args, **kw,
+                                                             compute_dtype=bf16), 20)
         plain_ms = time_ms(lambda: mod.collocation_sums_plain(
             params, *args, **kw, compute_dtype=bf16), 10)
         lib_ms = time_ms(lambda: nested_autograd_sums(p16, b16, 5.0, 0.05, **kw), 5)
         b_ms, b_by = bound(spec.layers, batch["x"].shape[0], grad=False,
                            operands="bf16")
-        log(f"{name} timing: kernel {ms:.4f} ms, bf16 plain {plain_ms:.4f} ms, "
-            f"nested autograd in bf16 {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        log(f"{name} timing: kernel {ms:.4f} ms (per call {call_ms:.4f}), bf16 plain "
+            f"{plain_ms:.4f} ms, nested autograd in bf16 {lib_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by})")
         rows.append({"name": name, "route": "cuda",
                      "source": f"gpe_tpu_torch/csrc/{mod.__name__.split('.')[-1]}.cu",
                      "replaces": replaces, "max_abs_err": worst_abs,
                      "max_rel_err": worst_rel, "loss_vs_f32_rel_err": loss_rel,
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": lib_ms})
     return rows
 

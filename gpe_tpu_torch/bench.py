@@ -166,6 +166,23 @@ def time_ms(fn, iters: int, device: torch.device, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int, device: torch.device, warmup: int = 2) -> float:
+    """Mean device milliseconds per call of `fn`: its launches captured once
+    in a CUDA graph, whose replays are timed with CUDA events, so the host
+    work of the call (argument checks, packing, ctypes) is left out. Needs a
+    CUDA device; `fn` may not synchronise."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    return time_ms(graph.replay, iters, device)
+
+
 def per_sec(count: float, ms: float, what: str) -> float:
     """count / (ms/1000); a time that is not positive and finite is an
     error, never clamped."""

@@ -1,27 +1,32 @@
-// Shared device code of the fused GPE kernels (fused_residual.cu, fused_grad.cu).
+// Shared device code of the fused GPE kernels (fused_residual.cu,
+// fused_grad.cu, rowcat_eval.cu).
 //
 // Layout. A block owns a tile of T = 128 / C collocation points, C = d + 2
 // channels (value, d Jacobian rows, Laplacian). The channel state of one
 // layer is a 128 x 128 f32 tile in shared memory, X[unit][m] with
 // m = c*T + r (channel c, point r of the tile) and a padded row stride LDS.
-// Rows m >= C*T and units past a layer's width stay zero.
+// Rows m >= C*T stay zero; units past a layer's width are zero or never
+// read.
 //
-// The forward GEMMs (gemm_tile, every kernel) run on CUDA cores in f32
-// FFMA: one TF32 tensor-core product keeps ~3 decimal digits, which breaks
-// parity with the f32 reference. K2's reverse GEMMs run on tensor cores in
-// 3xTF32 instead (fused_grad.cu: each operand split in two TF32 terms,
-// three products, ~2^-21 relative per product), so f32 parity holds there
-// at the TF32 rate over three. In the bf16
-// operand mode (template flag BF16, K1 and K4 only) every GEMM operand —
-// weights, channel state, layer 0's input x — is rounded to bf16 (nearest
-// even) where it is staged; a bf16 x bf16 product is exact in f32, so FFMA
-// then gives the TPU's bf16-MXU contract with f32 accumulation. Biases,
-// activations, the Hamiltonian and the sums stay f32. 256 threads
-// each own an 8 x 8 register tile of the 128 x 128 output; operands are read
-// from shared memory as float4, both "contraction-major":
+// GEMMs. Operands are read from shared memory "contraction-major":
 //     C[i][j] = sum_q A[q*LDS + i] * B[q*LDS + j].
+// gemm_tile runs them on CUDA cores in f32 FFMA, 256 threads each on an
+// 8 x 8 register tile of the 128 x 128 output, float4 operand loads: K2's
+// forward GEMMs and K1's in the bf16 operand mode (K4 has its own FFMA
+// GEMM in rowcat_eval.cu). mma_gemm runs
+// them on tensor cores in 3xTF32 (each operand split in two TF32 terms,
+// three products, ~2^-21 relative per product; one TF32 product keeps ~3
+// decimal digits, which breaks parity with the f32 reference): K2's
+// reverse GEMMs and K1's f32 forward GEMMs (forward_tile's MMA flag), so
+// f32 parity holds at the TF32 rate over three. In the bf16 operand mode
+// (template flag BF16, K1 and K4 only) every GEMM operand — weights,
+// channel state, layer 0's input x — is rounded to bf16 (nearest even)
+// where it is staged; a bf16 x bf16 product is exact in f32, so FFMA then
+// gives the TPU's bf16-MXU contract with f32 accumulation. Biases,
+// activations, the Hamiltonian and the sums stay f32.
 // Weights that a kernel stages more than once come from a copy padded to
-// 128 columns (K4: the host's; K2: its layout kernel's), by cp.async.
+// 128 columns (K4: the host's; K2: its layout kernel's), by cp.async; K1
+// stages a run's weights once per block and run by 4-byte cp.async.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -153,6 +158,10 @@ __device__ __forceinline__ void cp_async16(float* smem_dst, const float4* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
 }
+__device__ __forceinline__ void cp_async4(float* smem_dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
@@ -164,6 +173,18 @@ __device__ __forceinline__ void prefetch_w(const float4* __restrict__ Wp, int K,
                                            float* dst) {
   for (int i = threadIdx.x; i < K * (MAXW / 4); i += NT)
     cp_async16(dst + (i / (MAXW / 4)) * LDS + 4 * (i % (MAXW / 4)), Wp + i);
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Start the copy of W_l (K x N, row major, global; rows need no alignment)
+// into dst[k*LDS + o], o < N, by 4-byte cp.async; columns past N are not
+// written (the caller keeps them zero). cp_async_wait_all() + a barrier
+// make it visible.
+__device__ __forceinline__ void stage_w(const float* __restrict__ W, int K, int N,
+                                        float* dst) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int k = warp; k < K; k += NT / 32)        // a warp on a row, coalesced
+    for (int o = lane; o < N; o += 32) cp_async4(dst + k * LDS + o, W + k * N + o);
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
@@ -179,6 +200,105 @@ __device__ __forceinline__ void load_w(const float* __restrict__ W, int K, int N
   }
 }
 
+// a = hi + lo: hi is a rounded to TF32 (nearest, ties away: the bits of
+// cvt.rna.tf32.f32 for finite a, which sm_90a emulates in a longer
+// sequence; K2 times the same with either), lo = a − hi exactly, passed as
+// is (the tensor core reads its top 19 bits).
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(a - __uint_as_float(hi));
+}
+
+// d += a·b on one m16n8k8 TF32 tile, f32 accumulators
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A GEMM in 3xTF32 (K2's reverse GEMMs, K1's forward ones), gemm_tile's
+// operand convention:
+//   C[i][j] = Σ_{q < P} A[q·LDS + i]·B[q·LDS + j]  for i < rows, j < cols
+// (P ≤ 128; entries past rows/cols are not read, or come out 0). With MT
+// m16 tiles a warp (4: the 128 x 128 output; 2: its first 64 rows, for
+// rows ≤ 64), warp w owns rows i0 = 16·MT(w & 1) .. +16·MT−1 and columns
+// j0 = 32(w >> 1) .. +31; lane (g, t) holds acc[mt][nt] = C at rows
+// i0 + 16mt + (g, g + 8) x columns j0 + 8nt + (2t, 2t + 1). Each output
+// entry gets the same products in the same order whatever MT is. A warp
+// whose block lies wholly past rows or cols skips the work; inside a block
+// nothing is skipped, since a guard per m16n8 tile serialises the
+// tensor-core instructions. Each k8 slab issues all 4·MT tiles' hi·lo′
+// terms, then their lo·hi′, then hi·hi′: per accumulator the small products
+// come first, and adjacent mma.sync are independent.
+template <int MT>
+__device__ __forceinline__ void mma_gemm(const float* __restrict__ A,
+                                         const float* __restrict__ B, int P,
+                                         int rows, int cols, float (&acc)[MT][4][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int i0 = 16 * MT * (warp & 1), j0 = 32 * (warp >> 1);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  if (i0 >= rows || j0 >= cols) return;
+  const float* a = A + t * LDS + i0 + g;
+  const float* b = B + t * LDS + j0 + g;
+  for (int q0 = 0; q0 < P; q0 += 8) {
+    const bool in0 = q0 + t < P, in1 = q0 + t + 4 < P;   // rows q0+t, q0+t+4
+    const float* aq = a + q0 * LDS;
+    const float* bq = b + q0 * LDS;
+    uint32_t ah[MT][4], al[MT][4], bh[4][2], bl[4][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const float* p = aq + 16 * mt;
+      split_tf32(in0 ? p[0] : 0.f, ah[mt][0], al[mt][0]);             // (g,   t)
+      split_tf32(in0 ? p[8] : 0.f, ah[mt][1], al[mt][1]);             // (g+8, t)
+      split_tf32(in1 ? p[4 * LDS] : 0.f, ah[mt][2], al[mt][2]);       // (g,   t+4)
+      split_tf32(in1 ? p[4 * LDS + 8] : 0.f, ah[mt][3], al[mt][3]);   // (g+8, t+4)
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const float* p = bq + 8 * nt;
+      split_tf32(in0 ? p[0] : 0.f, bh[nt][0], bl[nt][0]);             // (k = t,   n = g)
+      split_tf32(in1 ? p[4 * LDS] : 0.f, bh[nt][1], bl[nt][1]);       // (k = t+4, n = g)
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], ah[mt], bl[nt]);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], al[mt], bh[nt]);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], ah[mt], bh[nt]);
+  }
+}
+
+// dst[i·LDS + j] = mma_gemm's C: the whole 128 x 128 tile for MT = 4, its
+// first 64 rows for MT = 2 (float2 stores)
+template <int MT>
+__device__ __forceinline__ void mma_store(float* dst, const float (&acc)[MT][4][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int i0 = 16 * MT * (warp & 1) + g, j0 = 32 * (warp >> 1) + 2 * t;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      float* p = dst + (i0 + 16 * mt) * LDS + j0 + 8 * nt;
+      *reinterpret_cast<float2*>(p) = make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+      *reinterpret_cast<float2*>(p + 8 * LDS) =
+          make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+    }
+}
+
 // Forward-Laplacian pass of one tile through every layer but the last.
 // On return X holds the last hidden layer's output state X[unit][m]. With
 // `store` non-null, each hidden layer l's PRE-activation state (z with bias,
@@ -186,8 +306,12 @@ __device__ __forceinline__ void load_w(const float* __restrict__ W, int K, int N
 // W_l (l = 1..L-2) sits in the smem tile wbase + (l-1)*TILE_FLOATS when the
 // weights are resident, or is loaded here into wbase when `stream` is set.
 // BF16: the state written to X (the next GEMM's operand), x and W0 are
-// rounded (K2 calls it with BF16 = false and a `store`).
-template <int D, bool BF16 = false>
+// rounded (K2 calls it with BF16 = false and a `store`). MMA: the hidden
+// GEMMs run on tensor cores in 3xTF32 (mma_gemm, the output cut to the
+// layer's width) instead of FFMA gemm_tile (K1's f32 mode only). WROWS:
+// the rows of a resident weight tile and of X — 64 when every hidden width
+// is ≤ 64 (K1's narrow mode, MMA only), else 128.
+template <int D, bool BF16 = false, bool MMA = false, int WROWS = MAXW>
 __device__ void forward_tile(float* X, const float* xs, const float* __restrict__ prm,
                              const Net& net, int act, float* wbase, bool stream,
                              float* __restrict__ store) {
@@ -227,16 +351,30 @@ __device__ void forward_tile(float* X, const float* xs, const float* __restrict_
   }
   for (int l = 1; l <= L - 2; ++l) {
     const int K = net.dims[l], N = net.dims[l + 1];
-    float* Wl = stream ? wbase : wbase + (l - 1) * TILE_FLOATS;
+    float* Wl = stream ? wbase : wbase + (l - 1) * WROWS * LDS;
     __syncthreads();
     if (stream) {
       load_w<BF16>(prm + net.w_off[l], K, N, Wl);
       __syncthreads();
     }
-    float acc[8][8];
-    gemm_tile(Wl, X, K, acc);            // C[o][m] = sum_k W[k][o] X[k][m]
-    __syncthreads();
-    store_tile(X, acc);
+    if constexpr (MMA) {
+      if (WROWS <= 64 || N <= 64) {      // all 8 warps on 32 x 32 blocks
+        float acc[2][4][4];
+        mma_gemm(Wl, X, K, N, C * T, acc);
+        __syncthreads();
+        mma_store(X, acc);               // rows 64.. (past N) are never read
+      } else {
+        float acc[4][4][4];
+        mma_gemm(Wl, X, K, N, C * T, acc);
+        __syncthreads();
+        mma_store(X, acc);
+      }
+    } else {
+      float acc[8][8];
+      gemm_tile(Wl, X, K, acc);          // C[o][m] = sum_k W[k][o] X[k][m]
+      __syncthreads();
+      store_tile(X, acc);
+    }
     __syncthreads();
     const float* bl = prm + net.b_off[l];
     float* sl = store ? store + (size_t)l * MAXW * MAXW : nullptr;

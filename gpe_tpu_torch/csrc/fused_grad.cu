@@ -14,11 +14,12 @@
 //
 // Bound on this card: operations. Per tile it runs 3 GEMMs per hidden GEMM
 // layer, ~0.79 MFLOP per point at width 128 (~0.15 MFLOP at width 64): the
-// forward product in f32 FFMA (common.cuh gemm_tile, K1's arithmetic, so
-// K2's sums keep K1's bits), and the two reverse products, W̄ = Inᵀ·Z̄ and
-// backprop Z̄·Wᵀ, on tensor cores in 3xTF32. f32-parity products come no
-// faster on this card than the dense TF32 rate over three (495/3 = 165
-// TFLOP/s): the roof chip_smoke.py holds K2 to.
+// forward product in f32 FFMA (common.cuh gemm_tile; K1's forward runs in
+// 3xTF32 since its redesign, so K2's sums agree with K1's to f32 round-off,
+// not to the bit), and the two reverse products, W̄ = Inᵀ·Z̄ and backprop
+// Z̄·Wᵀ, on tensor cores in 3xTF32 (common.cuh mma_gemm). f32-parity
+// products come no faster on this card than the dense TF32 rate over three
+// (495/3 = 165 TFLOP/s): the roof chip_smoke.py holds K2 to.
 //
 // Design:
 // - Run axis, not lane packing (see fused_residual.cu): work items are
@@ -49,10 +50,11 @@
 //   input, rebuilt from the stored state, into Z; (c) W̄, reading Z and Y,
 //   then staged through Y so that the add into the item's partial row is
 //   coalesced (a row of 32 consecutive units per warp access).
-// - Reverse GEMMs (mma_gemm): mma.sync m16n8k8 TF32 with f32 accumulators.
-//   Each f32 operand a splits into hi = a rounded to TF32 and lo = a − hi;
-//   a product is hi·lo′ + lo·hi′ + hi·hi′, the small terms first, lo·lo′
-//   dropped: ~2⁻²¹ relative per product, against ~2⁻¹¹ for one TF32 term.
+// - Reverse GEMMs (common.cuh mma_gemm): mma.sync m16n8k8 TF32 with f32
+//   accumulators. Each f32 operand a splits into hi = a rounded to TF32 and
+//   lo = a − hi; a product is hi·lo′ + lo·hi′ + hi·hi′, the small terms
+//   first, lo·lo′ dropped: ~2⁻²¹ relative per product, against ~2⁻¹¹ for
+//   one TF32 term.
 //   8 warps, each a 64 x 32 block of the 128 x 128 output (4 x 4 m16n8
 //   tiles, 64 f32 accumulators a thread, as gemm_tile's 8 x 8); a warp whose
 //   block lies wholly past the layer's widths skips it, and contraction rows
@@ -195,98 +197,6 @@ __device__ void forward_deep(float* X, const float* xs, const float* __restrict_
     }
   }
   __syncthreads();
-}
-
-// a = hi + lo: hi is a rounded to TF32 (nearest, ties away: the bits of
-// cvt.rna.tf32.f32 for finite a, which sm_90a emulates in a longer
-// sequence; K2 times the same with either), lo = a − hi exactly, passed as
-// is (the tensor core reads its top 19 bits).
-__device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(a - __uint_as_float(hi));
-}
-
-// d += a·b on one m16n8k8 TF32 tile, f32 accumulators
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The reverse GEMMs in 3xTF32, gemm_tile's operand convention:
-//   C[i][j] = Σ_{q < P} A[q·LDS + i]·B[q·LDS + j]  for i < rows, j < cols
-// (P ≤ 128; entries past rows/cols are not read, or come out 0). Warp w owns
-// rows i0 = 64(w & 1) .. +63 and columns j0 = 32(w >> 1) .. +31; lane (g, t)
-// holds acc[mt][nt] = C at rows i0 + 16mt + (g, g + 8) x columns
-// j0 + 8nt + (2t, 2t + 1). A warp whose block lies wholly past rows or cols
-// skips the work; inside a block nothing is skipped, since a guard per m16n8
-// tile serialises the tensor-core instructions. Each k8 slab issues all 16
-// tiles' hi·lo′ terms, then their lo·hi′, then hi·hi′: per accumulator the
-// small products come first, and adjacent mma.sync are independent.
-__device__ __forceinline__ void mma_gemm(const float* __restrict__ A,
-                                         const float* __restrict__ B, int P,
-                                         int rows, int cols, float acc[4][4][4]) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int i0 = 64 * (warp & 1), j0 = 32 * (warp >> 1);
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-  if (i0 >= rows || j0 >= cols) return;
-  const float* a = A + t * LDS + i0 + g;
-  const float* b = B + t * LDS + j0 + g;
-  for (int q0 = 0; q0 < P; q0 += 8) {
-    const bool in0 = q0 + t < P, in1 = q0 + t + 4 < P;   // rows q0+t, q0+t+4
-    const float* aq = a + q0 * LDS;
-    const float* bq = b + q0 * LDS;
-    uint32_t ah[4][4], al[4][4], bh[4][2], bl[4][2];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      const float* p = aq + 16 * mt;
-      split_tf32(in0 ? p[0] : 0.f, ah[mt][0], al[mt][0]);             // (g,   t)
-      split_tf32(in0 ? p[8] : 0.f, ah[mt][1], al[mt][1]);             // (g+8, t)
-      split_tf32(in1 ? p[4 * LDS] : 0.f, ah[mt][2], al[mt][2]);       // (g,   t+4)
-      split_tf32(in1 ? p[4 * LDS + 8] : 0.f, ah[mt][3], al[mt][3]);   // (g+8, t+4)
-    }
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const float* p = bq + 8 * nt;
-      split_tf32(in0 ? p[0] : 0.f, bh[nt][0], bl[nt][0]);             // (k = t,   n = g)
-      split_tf32(in1 ? p[4 * LDS] : 0.f, bh[nt][1], bl[nt][1]);       // (k = t+4, n = g)
-    }
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], ah[mt], bl[nt]);
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], al[mt], bh[nt]);
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], ah[mt], bh[nt]);
-  }
-}
-
-// dst[i·LDS + j] = mma_gemm's C, the whole 128 x 128 tile (float2 stores)
-__device__ __forceinline__ void mma_store(float* dst, const float acc[4][4][4]) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int i0 = 64 * (warp & 1) + g, j0 = 32 * (warp >> 1) + 2 * t;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      float* p = dst + (i0 + 16 * mt) * LDS + j0 + 8 * nt;
-      *reinterpret_cast<float2*>(p) = make_float2(acc[mt][nt][0], acc[mt][nt][1]);
-      *reinterpret_cast<float2*>(p + 8 * LDS) =
-          make_float2(acc[mt][nt][2], acc[mt][nt][3]);
-    }
 }
 
 template <int D>

@@ -1,5 +1,6 @@
 """K2's design choices, measured: compile-time variants of
-`csrc/fused_grad.cu`, each the source with a few lines replaced, built
+`csrc/fused_grad.cu` (with `csrc/common.cuh`, which holds its 3xTF32 GEMM
+routine), each the source with a few lines replaced, built
 beside the port's libraries (under `build/k2_variants/`, not committed) and
 timed on the card in place of the real kernel.
 
@@ -62,6 +63,7 @@ from gpe_tpu_torch.models.mlp import init_mlp, params_from_numpy, stack_runs
 from gpe_tpu_torch.train.problem import make_batch
 
 K2 = "fused_grad.cu"
+CMN = "common.cuh"         # the 3xTF32 GEMM routine that K2 shares with K1
 GUARD = "if (i0 + 16 * mt < rows && j0 + 8 * nt < cols) "
 # name -> [(file, text, replacement[, occurrences, default 1])]
 PATCHES = {
@@ -75,17 +77,17 @@ PATCHES = {
         (K2, "          mma_store(Y, acc);", "          store_tile(Y, acc);"),
     ],
     "one_term": [
-        (K2, "      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], ah[mt], bl[nt]);",
+        (CMN, "      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], ah[mt], bl[nt]);",
          "      for (int nt = 0; nt < 4; ++nt) {}"),
-        (K2, "      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], al[mt], bh[nt]);",
+        (CMN, "      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], al[mt], bh[nt]);",
          "      for (int nt = 0; nt < 4; ++nt) {}"),
     ],
     "cvt": [
-        (K2, "  hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;",
+        (CMN, "  hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;",
          '  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(hi) : "f"(a));'),
     ],
     "guards": [
-        (K2, "for (int nt = 0; nt < 4; ++nt) mma_tf32(",
+        (CMN, "for (int nt = 0; nt < 4; ++nt) mma_tf32(",
          "for (int nt = 0; nt < 4; ++nt) " + GUARD + "mma_tf32(", 3),
     ],
     "frag_epilogue": [
@@ -188,11 +190,12 @@ CLOCK_PATCH = [
 CLOCKED = ["as_is", "fragment_epilogue"]
 
 
-def write_variant(name: str, patches, root) -> None:
-    """The port's csrc with `patches` applied, into root/name/."""
+def write_variant(name: str, patches, root, csrc=None) -> None:
+    """The sources in `csrc` (default: the port's csrc) with `patches`
+    applied, into root/name/."""
     d = root / name
     shutil.rmtree(d, ignore_errors=True)
-    shutil.copytree(_build.CSRC, d)
+    shutil.copytree(csrc or _build.CSRC, d)
     for fname, text, new, *count in patches:
         p = d / fname
         s = p.read_text()
@@ -203,11 +206,12 @@ def write_variant(name: str, patches, root) -> None:
         p.write_text(s.replace(text, new))
 
 
-def build(sources: dict) -> dict:
-    """{name: (dir)} -> {name: loaded library}, one nvcc each, all at once."""
+def build(sources: dict, source: str = K2, bind=None) -> dict:
+    """{name: dir} -> {name: loaded library} of dir/`source`, one nvcc each,
+    all at once; `bind` (default: K2's) declares the entry points."""
     nvcc = _build._nvcc()
     procs = {n: subprocess.Popen(
-        [nvcc, *_build.NVCC_FLAGS, "-I", str(d), "-o", str(d / "lib.so"), str(d / K2)],
+        [nvcc, *_build.NVCC_FLAGS, "-I", str(d), "-o", str(d / "lib.so"), str(d / source)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for n, d in sources.items()}
     libs = {}
@@ -221,15 +225,16 @@ def build(sources: dict) -> dict:
         lib = ctypes.CDLL(str(sources[n] / "lib.so"))
         lib.gpe_error_string.restype = ctypes.c_char_p
         lib.gpe_error_string.argtypes = [ctypes.c_int]
-        k2._bind(lib)
+        (bind or k2._bind)(lib)
         libs[n] = lib
     return libs
 
 
-def use(lib) -> None:
-    """Route the K2 wrappers to `lib` (the wrappers load libraries by name)."""
+def use(lib, name: str = "fused_grad") -> None:
+    """Route the wrappers of csrc/`name`.cu to `lib` (the wrappers load
+    libraries by name)."""
     with _build._lock:
-        _build._libs["fused_grad"] = lib
+        _build._libs[name] = lib
 
 
 def grad_err(got, want) -> float:
@@ -302,24 +307,26 @@ def cases(dev):
     return out
 
 
-def clocks(lib, fn, reps: int = 10) -> dict:
+def clocks(lib, fn, reps: int = 10, entry: str = "gpe_k2_clocks", phases=PHASES,
+           name: str = "fused_grad", blocks: int = 256) -> dict:
     """Cycles per phase per launch (thread 0 of each block, mean over the
-    blocks that ran) of the instrumented build `lib`."""
-    lib.gpe_k2_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    use(lib)
+    blocks that ran) of the instrumented build `lib` of csrc/`name`.cu,
+    read through its C entry `entry` (16 counters for each of `blocks`)."""
+    read = getattr(lib, entry)
+    read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    use(lib, name)
     fn()
     torch.cuda.synchronize()
-    _build.check(lib, lib.gpe_k2_clocks(None, 1), "gpe_k2_clocks")
+    _build.check(lib, read(None, 1), entry)
     for _ in range(reps):
         fn()
     torch.cuda.synchronize()
-    host = (ctypes.c_ulonglong * (256 * 16))()
-    _build.check(lib, lib.gpe_k2_clocks(ctypes.cast(host, ctypes.c_void_p), 0),
-                 "gpe_k2_clocks")
-    c = np.array(host[:], dtype=np.float64).reshape(256, 16)[:, :len(PHASES)]
+    host = (ctypes.c_ulonglong * (blocks * 16))()
+    _build.check(lib, read(ctypes.cast(host, ctypes.c_void_p), 0), entry)
+    c = np.array(host[:], dtype=np.float64).reshape(blocks, 16)[:, :len(phases)]
     c = c[c.sum(axis=1) > 0].mean(axis=0) / reps
     return {"kcycles": float(c.sum() / 1e3),
-            "share": {ph: float(x / c.sum()) for ph, x in zip(PHASES, c)}}
+            "share": {ph: float(x / c.sum()) for ph, x in zip(phases, c)}}
 
 
 def main(argv=None) -> int:

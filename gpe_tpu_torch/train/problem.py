@@ -216,16 +216,36 @@ def make_loss_fn(spec: GPESpec) -> Callable:
     return loss_fn
 
 
+def _env(name: str) -> str | None:
+    """The port's switch GPE_TPU_TORCH_<name> (the JAX package reads
+    GPE_TPU_<name>)."""
+    return os.environ.get("GPE_TPU_TORCH_" + name)
+
+
 def _resolve_relaxed(relaxed, fresh_values, extrapolate):
-    """The relaxed-mode triple. No explicit choice and no env → relaxed +
-    fresh_values + extrapolate (the JAX package's default);
-    GPE_TPU_TORCH_NO_RELAXED=1 → the exact two-kernel step. Explicit
-    kwargs always win."""
+    """The relaxed-mode triple, resolved as the JAX package resolves it.
+    No explicit choice and no env → relaxed + fresh_values + extrapolate
+    (the JAX package's default); GPE_TPU_TORCH_NO_RELAXED=1 → the exact
+    two-kernel step; GPE_TPU_TORCH_RELAXED_FUSED=1 → PLAIN relaxed, whose
+    correctors come only from GPE_TPU_TORCH_RELAXED_EXTRAP=1 and
+    GPE_TPU_TORCH_RELAXED_FRESH=1, which also fill any corrector left None.
+    Explicit kwargs always win."""
     if relaxed is None:
-        relaxed = not os.environ.get("GPE_TPU_TORCH_NO_RELAXED")
-        if relaxed and fresh_values is None and extrapolate is None:
+        forced_plain = bool(_env("RELAXED_FUSED"))
+        relaxed = forced_plain or not _env("NO_RELAXED")
+        if (relaxed and not forced_plain
+                and fresh_values is None and extrapolate is None):
             fresh_values = extrapolate = True
+    if extrapolate is None:
+        extrapolate = bool(_env("RELAXED_EXTRAP"))
+    if fresh_values is None:
+        fresh_values = bool(_env("RELAXED_FRESH"))
     return bool(relaxed), bool(fresh_values), bool(extrapolate)
+
+
+def _env_int(value: int | None, name: str) -> int:
+    """value, or GPE_TPU_TORCH_<name> (default 0) when it is None."""
+    return int(_env(name) or 0) if value is None else int(value)
 
 
 def _fused_loss(spec: GPESpec) -> bool:
@@ -246,23 +266,28 @@ def _fused_loss(spec: GPESpec) -> bool:
 
 def make_fused_value_and_grad(spec: GPESpec, device=None,
                               relaxed: bool | None = None,
-                              refresh_every: int = 0,
+                              refresh_every: int | None = None,
                               extrapolate: bool | None = None,
-                              exact_until: int = 0,
+                              exact_until: int | None = None,
                               fresh_values: bool | None = None):
     """The fused CUDA training gradient (kernels/fused_grad.py) for eligible
     specs (`_fused_loss`) on a CUDA device, else None — fit() then uses
     autograd. The JAX package's n ≥ 16384 gate was a TPU crossover and is
-    not carried over. GPE_TPU_TORCH_NO_FUSED=1 disables the fused path."""
-    from gpe_tpu_torch.kernels.fused_grad import make_value_and_grad
+    not carried over. GPE_TPU_TORCH_NO_FUSED=1 disables the fused path.
+    The relaxed mode resolves as `_resolve_relaxed`; refresh_every and
+    exact_until left None read GPE_TPU_TORCH_RELAXED_REFRESH and
+    GPE_TPU_TORCH_RELAXED_EXACT_UNTIL (default 0)."""
+    from gpe_tpu_torch.kernels import fused_grad
 
-    if os.environ.get("GPE_TPU_TORCH_NO_FUSED"):
+    if _env("NO_FUSED"):
         return None
     relaxed, fresh_values, extrapolate = _resolve_relaxed(
         relaxed, fresh_values, extrapolate)
+    refresh_every = _env_int(refresh_every, "RELAXED_REFRESH")
+    exact_until = _env_int(exact_until, "RELAXED_EXACT_UNTIL")
     if resolve_device(device).type != "cuda" or not _fused_loss(spec):
         return None
-    return make_value_and_grad(
+    return fused_grad.make_value_and_grad(
         spec.layers, spec.activation, spec.p, spec.kinetic, spec.nonlinearity,
         bc_weight=spec.bc_weight, norm_weight=spec.norm_weight,
         delayed=relaxed, refresh_every=refresh_every, extrapolate=extrapolate,
@@ -278,33 +303,42 @@ def packed_eligible(spec: GPESpec, n_runs: int) -> bool:
 
 
 def packed_value_and_grad(spec: GPESpec, relaxed: bool | None = None,
-                          refresh_every: int = 0, extrapolate: bool = False):
+                          refresh_every: int | None = None,
+                          extrapolate: bool | None = None):
     """The run-mode fused gradient of a spec (kernels/fused_grad.py,
     runs=True) on whatever device its tensors lie: the kernels on the card,
     their plain versions on the CPU. The exact two-kernel step is the
     default; relaxed=None reads GPE_TPU_TORCH_RELAXED_FUSED=1 (opt-in, as in
-    the JAX package, whose packed A/B found the relaxed mode less accurate)."""
-    from gpe_tpu_torch.kernels.fused_grad import make_value_and_grad
+    the JAX package, whose packed A/B found the relaxed mode less accurate).
+    As in the JAX package's packed factory, refresh_every and extrapolate
+    left None read GPE_TPU_TORCH_RELAXED_REFRESH / _EXTRAP, and exact_until
+    and fresh_values always come from GPE_TPU_TORCH_RELAXED_EXACT_UNTIL /
+    _FRESH."""
+    from gpe_tpu_torch.kernels import fused_grad
 
     if relaxed is None:
-        relaxed = bool(os.environ.get("GPE_TPU_TORCH_RELAXED_FUSED"))
-    return make_value_and_grad(
+        relaxed = bool(_env("RELAXED_FUSED"))
+    if extrapolate is None:
+        extrapolate = bool(_env("RELAXED_EXTRAP"))
+    return fused_grad.make_value_and_grad(
         spec.layers, spec.activation, spec.p, spec.kinetic, spec.nonlinearity,
         bc_weight=spec.bc_weight, norm_weight=spec.norm_weight,
-        delayed=relaxed, refresh_every=refresh_every, extrapolate=extrapolate,
-        runs=True)
+        delayed=relaxed, refresh_every=_env_int(refresh_every, "RELAXED_REFRESH"),
+        extrapolate=extrapolate, exact_until=_env_int(None, "RELAXED_EXACT_UNTIL"),
+        fresh_values=bool(_env("RELAXED_FRESH")), runs=True)
 
 
 def make_packed_value_and_grad(spec: GPESpec, n_runs: int, device=None,
                                relaxed: bool | None = None,
-                               refresh_every: int = 0, extrapolate: bool = False):
+                               refresh_every: int | None = None,
+                               extrapolate: bool | None = None):
     """The fused gradient of the packed ensemble path (the port of JAX's
     `make_packed_value_and_grad`): `packed_value_and_grad` when `packed_eligible`
     and on a CUDA device, else None (as JAX's is None off the TPU).
     The ensemble runs on a run axis of the kernels, not lane-packed; n_runs
     (JAX's runs per kernel, M) only enters the eligibility.
     GPE_TPU_TORCH_NO_FUSED=1 disables it."""
-    if os.environ.get("GPE_TPU_TORCH_NO_FUSED"):
+    if _env("NO_FUSED"):
         return None
     if resolve_device(device).type != "cuda" or not packed_eligible(spec, n_runs):
         return None

@@ -45,8 +45,11 @@ def test_kernels_match_plain_on_the_card(cuda_device, layers, n):
     """Each CUDA kernel against its plain version on the same CUDA tensors:
     ragged tails, d = 1..3, widths below 128, no hidden GEMM layer, K1's
     streamed-weight path and K2's own forward loop (3 hidden GEMMs), the main
-    path's net, the bench's width 100 and, in K2's tensor-core reverse GEMMs,
-    widths that are not multiples of 8 (100 → 36) next to ones that are."""
+    path's net, the bench's width 100 and, in the tensor-core GEMMs (K1's
+    forward, K2's reverse), widths that are not multiples of 8 (100 → 36)
+    next to ones that are, and widths ≤ 64 (32 x 32 warp blocks) next to
+    wider ones. K2's sums against K1's: rtol 1e-6, not bit-equality — K2's
+    forward GEMMs are FFMA, K1's 3xTF32, so the two agree to f32 round-off."""
     rng = np.random.default_rng(0)
     d = layers[0]
     params = params_from_numpy(
@@ -119,6 +122,8 @@ def _run_inputs(layers, n, R, per_run, device, seed=0):
 
 
 @pytest.mark.parametrize("layers,n,R,per_run", [((1, 64, 64, 64, 1), 4000, 6, True),
+                                                ((1, 64, 64, 1), 4000, 6, False),
+                                                ((1, 64, 64, 64, 64, 1), 4000, 6, True),
                                                 ((1, 32, 32, 1), 777, 8, True),
                                                 ((2, 64, 64, 1), 1000, 2, False),
                                                 ((2, 32, 32, 32, 1), 501, 3, True),
@@ -128,7 +133,11 @@ def test_run_kernels_match_plain_and_single_runs_on_the_card(cuda_device, layers
     """The run-mode K1/K2 (K3) against their plain versions and against R
     single-run launches, which they equal bit for bit (the same tile walk
     and reduction order per run): d = 1 and 2, widths 32 and 64, R = 2–8,
-    ragged n, shared and per-run bases, power nonlinearity with u < 0."""
+    ragged n, shared and per-run bases, power nonlinearity with u < 0. At
+    n = 4000, d = 1 each of the 6·96 items is one tile, so a block's items
+    cross from one run to the next and K1 stages weights per run, not per
+    item; the 3-hidden-GEMM net streams them per layer instead. K2's sums
+    against K1's: rtol 1e-6 (FFMA forward against 3xTF32, not bit-equal)."""
     from gpe_tpu_torch.models.mlp import run_slice
 
     a = _run_inputs(layers, n, R, per_run, cuda_device)
@@ -269,7 +278,7 @@ K2_SPLIT_CASES = [((2, 128, 128, 128, 1), 4096), ((1, 64, 64, 64, 1), 4000)]
 @pytest.mark.parametrize("layers,n", K2_SPLIT_CASES)
 def test_k2_split_tf32_reverse_pass_keeps_f32_parity(cuda_device, layers, n):
     """K2 with weights scaled x4 against its plain version (normalised 2e-4),
-    its sums against K1's (rtol 1e-6)."""
+    its sums against K1's (rtol 1e-6: K2's forward is FFMA, K1's 3xTF32)."""
     params, x, V, w, bval, blap = _inputs(layers, n, cuda_device, w_scale=4.0)
     phys = ("shifted_tanh", 3.0, 0.5, "abs_power")
     sums = k1.collocation_sums(params, x, V, w, 5.0, 0.05, bval, blap, *phys)
@@ -299,3 +308,32 @@ def test_layout_kernel_matches_its_plain_version(cuda_device, layers, R):
     want = k2.padded_weights_plain(params, R)
     assert got.shape == want.shape
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("layers,n,R", [((2, 128, 128, 128, 1), 4096, None),
+                                        ((1, 64, 64, 64, 1), 4000, None),
+                                        ((1, 64, 64, 64, 1), 4000, 6)])
+def test_k1_split_tf32_forward_keeps_f32_parity(cuda_device, layers, n, R):
+    """K1 and K3 sums with weights scaled x4 against their plain versions,
+    rel 1e-4 per sum (K1_TOL): K1's forward GEMMs run in 3xTF32, and with one
+    TF32 product per f32 product (k1_variants.py's tf32x1) these sums miss
+    1e-4 (PERF.md: 1.5e-4, 4.0e-4 and 3.5e-3), so the test guards the split."""
+    rng = np.random.default_rng(0)
+    lead = () if R is None else (R,)
+    params = params_from_numpy(
+        [(4.0 * rng.normal(0.0, 1.0 / np.sqrt(k), lead + (k, m)),
+          rng.normal(0.0, 0.1, lead + (m,))) for k, m in zip(layers[:-1], layers[1:])],
+        device=cuda_device)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda_device)
+    x = t(rng.uniform(-5.0, 5.0, (n, layers[0])))
+    V, w = t(rng.uniform(0.0, 10.0, n)), t(np.full(n, 0.01))
+    bval, blap = t(rng.normal(0.0, 0.3, lead + (n,))), t(rng.normal(0.0, 0.3, lead + (n,)))
+    phys = ("shifted_tanh", 3.0, 0.5, "abs_power")
+    if R is None:
+        args = (params, x, V, w, 5.0, 0.05, bval, blap, *phys)
+        got, want = k1.collocation_sums(*args), k1.collocation_sums_plain(*args)
+    else:
+        args = (params, x, V, w, torch.linspace(0.0, 5.0, R, device=cuda_device),
+                torch.linspace(0.01, 0.1, R, device=cuda_device), bval, blap, *phys)
+        got, want = k1.collocation_sums_runs(*args), k1.collocation_sums_runs_plain(*args)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4)

@@ -202,6 +202,67 @@ def test_relaxed_default_resolution(monkeypatch):
     assert tprob._resolve_relaxed(None, None, None) == (False, False, False)
 
 
+RELAXED_ENV = ("NO_RELAXED", "RELAXED_FUSED", "RELAXED_EXTRAP", "RELAXED_FRESH",
+               "RELAXED_REFRESH", "RELAXED_EXACT_UNTIL", "NO_FUSED")
+
+
+@pytest.mark.parametrize("env", [
+    {}, {"NO_RELAXED": "1"}, {"RELAXED_FUSED": "1"},
+    {"RELAXED_FUSED": "1", "RELAXED_EXTRAP": "1"},
+    {"RELAXED_FUSED": "1", "RELAXED_FRESH": "1", "RELAXED_REFRESH": "5"},
+    {"NO_RELAXED": "1", "RELAXED_EXTRAP": "1", "RELAXED_EXACT_UNTIL": "30"},
+    {"RELAXED_FRESH": "1", "RELAXED_REFRESH": "3", "RELAXED_EXACT_UNTIL": "10"},
+    {"NO_RELAXED": "1", "RELAXED_FUSED": "1"}])
+def test_relaxed_env_switches_resolve_as_in_jax(env, monkeypatch):
+    """Each GPE_TPU_TORCH_<switch> setting resolves as the JAX package
+    resolves its GPE_TPU_<switch> twin: the relaxed triple under every
+    explicit-kwarg pattern (explicit kwargs win), and the options that the
+    single-run and the packed factory pass on to the gradient builder."""
+    import gpe_tpu.pallas as jpallas
+    from gpe_tpu_torch.kernels import fused_grad as tfg
+
+    for name in RELAXED_ENV:
+        for prefix in ("GPE_TPU_", "GPE_TPU_TORCH_"):
+            monkeypatch.delenv(prefix + name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv("GPE_TPU_" + name, value)
+        monkeypatch.setenv("GPE_TPU_TORCH_" + name, value)
+    for kw in [(None, None, None), (True, None, None), (False, None, None),
+               (None, False, None), (None, None, True), (True, True, False)]:
+        want = tuple(bool(v) for v in jprob._resolve_relaxed(*kw))
+        assert tprob._resolve_relaxed(*kw) == want, kw
+
+    seen = {}
+    keys = ("delayed", "refresh_every", "extrapolate", "exact_until", "fresh_values")
+
+    def capture(side):
+        def builder(*args, **kw):
+            seen[side] = tuple(bool(kw[k]) if k in ("delayed", "extrapolate",
+                                                    "fresh_values") else int(kw[k])
+                               for k in keys)
+            return object()
+        return builder
+
+    monkeypatch.setattr(jpallas, "make_pallas_value_and_grad", capture("jax"))
+    monkeypatch.setattr(jpallas, "pallas_supported", lambda: True)
+    monkeypatch.setattr(tfg, "make_value_and_grad", capture("torch"))
+    monkeypatch.setattr(tprob, "resolve_device", lambda device=None: torch.device("cuda"))
+    single = dict(dim=2, n_points=128, layers=(2, 32, 32, 1), lb=-6.0, ub=6.0,
+                  potential_kwargs=(("a", 0.5),), kinetic=0.5)
+    packed = dict(n_points=4000, lb=-10.0, ub=10.0, p=3.0, nonlinearity="power",
+                  layers=(1, 64, 64, 1), activation="shifted_tanh")
+    for explicit in ({}, {"refresh_every": 7, "extrapolate": False}):
+        for mod, more in ((jprob, {"interpret": True}), (tprob, {})):
+            side = "jax" if mod is jprob else "torch"
+            assert mod.make_fused_value_and_grad(mod.GPESpec(**single),
+                                                 **explicit) is not None
+            fused = seen.pop(side)
+            assert mod.make_packed_value_and_grad(mod.GPESpec(**packed), 2, **more,
+                                                  **explicit) is not None
+            seen[side] = (fused, seen.pop(side))
+        assert seen["torch"] == seen["jax"], (explicit, seen)
+
+
 def test_kernel_input_checks_reject_malformed_input():
     from gpe_tpu_torch.kernels._common import check_inputs
     _, _, _, tparams, _, tbatch, _, _, _ = _setup("2d_perturbation")
@@ -273,8 +334,32 @@ def test_k2_variant_patches_apply_to_the_kernel_source(variant, tmp_path):
     patches = [x for p in kv.VARIANTS[name][0] for x in kv.PATCHES[p]]
     patches += kv.CLOCK_PATCH if clocked else []
     kv.write_variant(variant, patches, tmp_path)
-    src = (_build.CSRC / "fused_grad.cu").read_text()
-    out = (tmp_path / variant / "fused_grad.cu").read_text()
+    files = ("fused_grad.cu", "common.cuh")      # K2's source and its shared GEMMs
+    src = [(_build.CSRC / f).read_text() for f in files]
+    out = [(tmp_path / variant / f).read_text() for f in files]
     assert (out == src) == (not patches)
+    out = out[0]
     if clocked:
         assert "gpe_k2_clocks" in out
+
+
+@pytest.mark.parametrize("variant", ["as_is", "ffma_forward", "tf32x1", "one_block_per_sm",
+                                     "half_warps", "as_is+clocks"])
+def test_k1_variant_patches_apply_to_the_kernel_source(variant, tmp_path):
+    """experiments/k1_variants.py's patches of csrc/fused_residual.cu and
+    csrc/common.cuh still find their anchor text, each the expected number
+    of times, and change the source (the build and the timing need the
+    card). Its ablations of the kernel before the redesign patch that
+    tree's sources, not these."""
+    from gpe_tpu_torch.experiments import k1_variants as kv
+    from gpe_tpu_torch.kernels import _build
+
+    assert variant.partition("+")[0] in kv.CURRENT
+    patches = kv.patches_of(variant)
+    kv.write_variant(variant, patches, tmp_path)
+    files = ("fused_residual.cu", "common.cuh")
+    src = [(_build.CSRC / f).read_text() for f in files]
+    out = [(tmp_path / variant / f).read_text() for f in files]
+    assert (out == src) == (not patches)
+    if variant.endswith("+clocks"):
+        assert "gpe_k1_clocks" in out[0] and "CLK(" in out[1]
