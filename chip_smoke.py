@@ -22,7 +22,8 @@ port's three paths on the card:
    points, [2,100,100,100,1]): K1 and K2 at width 100 against their plain
    versions; K4 (csrc/rowcat_eval.cu) against its plain version and against
    K1, at this shape and the main shape, timed; K1 and K4 with bf16 GEMM
-   operands against their bf16 plain versions and the f32 loss; the GEMM
+   operands (bf16 tensor cores) against their bf16 plain versions and the
+   f32 loss, timed at both shapes; the GEMM
    propagator against the FFT one on a 256² grid; then the benchmark itself,
    in-process with fewer repetitions, its JSON on a line of its own.
 
@@ -681,12 +682,14 @@ def phase_k4(spec, batch, params, label):
             "bound_by": b_by, "library_ms": lib_ms}
 
 
-def phase_bf16(spec, batch, params):
+def phase_bf16(spec, batch, params, main):
     """K1 and K4 with bf16 GEMM operands against their bf16 plain versions
     (BF16_TOL per sum) and, as the benchmark checks, their loss within 0.1
     of the plain f32 loss; timed as kernel, bf16 plain version and library
     (nested autograd with bf16 parameters and inputs); bound at the bf16
-    tensor-core peak."""
+    tensor-core peak. The kernels are timed at the main shape too (`main`:
+    its spec, batch and params) as `main_shape_ms`; the log gives each
+    time's share of its bound."""
     import torch
     from gpe_tpu_torch.bench import (GAMMA, LOSS_TOL_BF16, SCALE, bench_tile,
                                      nested_autograd_sums)
@@ -695,6 +698,7 @@ def phase_bf16(spec, batch, params):
     from gpe_tpu_torch.train.problem import make_loss_fn
 
     bf16 = torch.bfloat16
+    mspec, mbatch, mparams = main
     _, kw = _sums_args(spec, batch, 0.0, 0.0)
     weights = dict(bc_weight=spec.bc_weight, norm_weight=spec.norm_weight)
     ref = float(make_loss_fn(spec)(params, batch, GAMMA, SCALE)[0])
@@ -737,15 +741,22 @@ def phase_bf16(spec, batch, params):
         lib_ms = time_ms(lambda: nested_autograd_sums(p16, b16, 5.0, 0.05, **kw), 5)
         b_ms, b_by = bound(spec.layers, batch["x"].shape[0], grad=False,
                            operands="bf16")
+        margs, mkw = _sums_args(mspec, mbatch, 5.0, 0.05)
+        main_ms, _ = kernel_ms(lambda: mod.collocation_sums(
+            mparams, *margs, **mkw, compute_dtype=bf16), 20)
+        main_b_ms, _ = bound(mspec.layers, mbatch["x"].shape[0], grad=False,
+                             operands="bf16")
         log(f"{name} timing: kernel {ms:.4f} ms (per call {call_ms:.4f}), bf16 plain "
             f"{plain_ms:.4f} ms, nested autograd in bf16 {lib_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by})")
+            f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of it; main shape "
+            f"{main_ms:.4f} ms, bound {main_b_ms:.4f} ms, {100 * main_b_ms / main_ms:.1f}%")
         rows.append({"name": name, "route": "cuda",
                      "source": f"gpe_tpu_torch/csrc/{mod.__name__.split('.')[-1]}.cu",
                      "replaces": replaces, "max_abs_err": worst_abs,
                      "max_rel_err": worst_rel, "loss_vs_f32_rel_err": loss_rel,
-                     "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": lib_ms})
+                     "ms": ms, "call_ms": call_ms, "main_shape_ms": main_ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": lib_ms})
     return rows
 
 
@@ -835,8 +846,10 @@ def main() -> int:
     bspec, bbatch, bparams = bench_shape(dev)
     phase_width100(bspec, bbatch, bparams)
     kernels.append(phase_k4(bspec, bbatch, bparams, "bench shape"))
-    kernels[-1]["main_shape_ms"] = phase_k4(*main_shape(dev)[1:], "main shape")["ms"]
-    kernels += phase_bf16(bspec, bbatch, bparams)
+    main = main_shape(dev)[1:]
+    kernels[-1]["main_shape_ms"] = phase_k4(*main, "main shape")["ms"]
+    kernels += phase_bf16(bspec, bbatch, bparams, main)
+    del main
     del bbatch, bparams
     phase_dynamics(dev)
     bench_launches = phase_bench(dev)

@@ -12,18 +12,21 @@
 //     C[i][j] = sum_q A[q*LDS + i] * B[q*LDS + j].
 // gemm_tile runs them on CUDA cores in f32 FFMA, 256 threads each on an
 // 8 x 8 register tile of the 128 x 128 output, float4 operand loads: K2's
-// forward GEMMs and K1's in the bf16 operand mode (K4 has its own FFMA
-// GEMM in rowcat_eval.cu). mma_gemm runs
-// them on tensor cores in 3xTF32 (each operand split in two TF32 terms,
-// three products, ~2^-21 relative per product; one TF32 product keeps ~3
-// decimal digits, which breaks parity with the f32 reference): K2's
-// reverse GEMMs and K1's f32 forward GEMMs (forward_tile's MMA flag), so
-// f32 parity holds at the TF32 rate over three. In the bf16 operand mode
-// (template flag BF16, K1 and K4 only) every GEMM operand — weights,
-// channel state, layer 0's input x — is rounded to bf16 (nearest even)
-// where it is staged; a bf16 x bf16 product is exact in f32, so FFMA then
-// gives the TPU's bf16-MXU contract with f32 accumulation. Biases,
-// activations, the Hamiltonian and the sums stay f32.
+// forward GEMMs (K4's f32 mode has its own FFMA GEMM in rowcat_eval.cu).
+// mma_gemm runs them on tensor cores in 3xTF32 (each operand split in two
+// TF32 terms, three products, ~2^-21 relative per product; one TF32
+// product keeps ~3 decimal digits, which breaks parity with the f32
+// reference): K2's reverse GEMMs and K1's f32 forward GEMMs (forward_tile's
+// MMA flag), so f32 parity holds at the TF32 rate over three. In the bf16
+// operand mode (template flag BF16, K1 and K4 only) every GEMM operand —
+// weights, channel state, layer 0's input x — is a bf16 value (nearest
+// even): the state and x are rounded where they are written (`op`), the
+// hidden weights by mma_gemm_bf16 as it packs its fragments (K4's padded
+// copy arrives rounded from the host). mma_gemm_bf16 runs the hidden GEMMs
+// on bf16 tensor cores (mma.sync m16n8k16, f32 accumulators): a bf16 x bf16
+// product is exact in f32, so this is the TPU's bf16-MXU contract with f32
+// accumulation, one product per term, no split. Biases, activations, the
+// Hamiltonian and the sums stay f32.
 // Weights that a kernel stages more than once come from a copy padded to
 // 128 columns (K4: the host's; K2: its layout kernel's), by cp.async; K1
 // stages a run's weights once per block and run by 4-byte cp.async.
@@ -189,14 +192,13 @@ __device__ __forceinline__ void stage_w(const float* __restrict__ W, int K, int 
 }
 
 // W_l (K x N, row major, global) into a smem tile, zero-padded to 128
-// columns: dst[k*LDS + o] = W[k][o] (k < K). BF16 rounds each element as it
-// is staged (forward GEMM operands only).
-template <bool BF16 = false>
+// columns: dst[k*LDS + o] = W[k][o] (k < K). K1's streamed weights, f32 in
+// both modes (the bf16 GEMM rounds them as it packs them).
 __device__ __forceinline__ void load_w(const float* __restrict__ W, int K, int N,
                                        float* dst) {
   for (int idx = threadIdx.x; idx < K * MAXW; idx += NT) {
     const int k = idx / MAXW, o = idx % MAXW;
-    dst[k * LDS + o] = (o < N) ? op<BF16>(W[k * N + o]) : 0.f;
+    dst[k * LDS + o] = (o < N) ? W[k * N + o] : 0.f;
   }
 }
 
@@ -281,20 +283,97 @@ __device__ __forceinline__ void mma_gemm(const float* __restrict__ A,
   }
 }
 
-// dst[i·LDS + j] = mma_gemm's C: the whole 128 x 128 tile for MT = 4, its
-// first 64 rows for MT = 2 (float2 stores)
-template <int MT>
-__device__ __forceinline__ void mma_store(float* dst, const float (&acc)[MT][4][4]) {
+// Two f32 values as one bf16x2 register, lo in bits 0–15, each rounded to
+// bf16 nearest even (cvt.rn.bf16x2.f32: the bits of op<true>)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// d += a·b on one m16n8k16 bf16 tile, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A GEMM on bf16 tensor cores (the bf16 operand mode's hidden GEMMs, K1's
+// and K4's), mma_gemm's operand convention, warp layout and accumulator
+// layout, NTL n8 tiles a warp (4: K1's 32 columns; 8: K4's 64):
+//   C[i][j] = Σ_{q < P} bf16(A[q·LDS + i])·bf16(B[q·LDB + j])
+// for i < rows, j < cols, warp w on rows 16·MT(w & 1) .. +16·MT−1 and
+// columns 8·NTL(w >> 1) .. +8·NTL−1. Operands are read as f32 and rounded
+// as they are packed (a no-op for a value that is bf16 already); one
+// m16n8k16 per tile and k16 slab, f32 accumulators, no split: the products
+// are exact, only the order of the f32 sums differs from FFMA's. Per the
+// PTX fragment map, lane (g, t)'s A register r of tile mt packs contraction
+// rows (k, k+1) (r = 0, 1) or (k+8, k+9) (r = 2, 3), k = q0 + 2t, at column
+// i0 + 16mt + g (+8 for r = 1, 3); its B register r rows (k, k+1) or
+// (k+8, k+9) at column j0 + 8nt + g. With row strides ≡ 4 (mod 32) floats,
+// rows 2t and 2t+1 fall on banks 8t + g and 8t + 4 + g: every load of a
+// warp is conflict-free. Rows at or past P read 0 (every slab is guarded:
+// the last partial slab split off was no faster, bf16_variants.py).
+template <int MT, int NTL = 4, int LDB = LDS>
+__device__ __forceinline__ void mma_gemm_bf16(const float* __restrict__ A,
+                                              const float* __restrict__ B, int P,
+                                              int rows, int cols,
+                                              float (&acc)[MT][NTL][4]) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int i0 = 16 * MT * (warp & 1) + g, j0 = 32 * (warp >> 1) + 2 * t;
+  const int i0 = 16 * MT * (warp & 1), j0 = 8 * NTL * (warp >> 1);
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      float* p = dst + (i0 + 16 * mt) * LDS + j0 + 8 * nt;
+    for (int nt = 0; nt < NTL; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  if (i0 >= rows || j0 >= cols) return;
+  const float* a = A + 2 * t * LDS + i0 + g;
+  const float* b = B + 2 * t * LDB + j0 + g;
+  for (int q0 = 0; q0 < P; q0 += 16) {
+    const int k = q0 + 2 * t;
+    const bool in0 = k < P, in1 = k + 1 < P, in8 = k + 8 < P, in9 = k + 9 < P;
+    const float* aq = a + q0 * LDS;
+    const float* bq = b + q0 * LDB;
+    uint32_t af[MT][4], bf[NTL][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const float* p = aq + 16 * mt;
+      af[mt][0] = pack_bf16(in0 ? p[0] : 0.f, in1 ? p[LDS] : 0.f);
+      af[mt][1] = pack_bf16(in0 ? p[8] : 0.f, in1 ? p[LDS + 8] : 0.f);
+      af[mt][2] = pack_bf16(in8 ? p[8 * LDS] : 0.f, in9 ? p[9 * LDS] : 0.f);
+      af[mt][3] = pack_bf16(in8 ? p[8 * LDS + 8] : 0.f, in9 ? p[9 * LDS + 8] : 0.f);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NTL; ++nt) {
+      const float* p = bq + 8 * nt;
+      bf[nt][0] = pack_bf16(in0 ? p[0] : 0.f, in1 ? p[LDB] : 0.f);
+      bf[nt][1] = pack_bf16(in8 ? p[8 * LDB] : 0.f, in9 ? p[9 * LDB] : 0.f);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NTL; ++nt) mma_bf16(acc[mt][nt], af[mt], bf[nt]);
+  }
+}
+
+// dst[i·LD + j] = mma_gemm's (or mma_gemm_bf16's) C: with NTL = 4, the
+// whole 128 x 128 tile for MT = 4, its first 64 rows for MT = 2; K4's
+// 128 x 256 with NTL = 8 (float2 stores)
+template <int MT, int NTL, int LD = LDS>
+__device__ __forceinline__ void mma_store(float* dst, const float (&acc)[MT][NTL][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int i0 = 16 * MT * (warp & 1) + g, j0 = 8 * NTL * (warp >> 1) + 2 * t;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NTL; ++nt) {
+      float* p = dst + (i0 + 16 * mt) * LD + j0 + 8 * nt;
       *reinterpret_cast<float2*>(p) = make_float2(acc[mt][nt][0], acc[mt][nt][1]);
-      *reinterpret_cast<float2*>(p + 8 * LDS) =
+      *reinterpret_cast<float2*>(p + 8 * LD) =
           make_float2(acc[mt][nt][2], acc[mt][nt][3]);
     }
 }
@@ -307,10 +386,12 @@ __device__ __forceinline__ void mma_store(float* dst, const float (&acc)[MT][4][
 // weights are resident, or is loaded here into wbase when `stream` is set.
 // BF16: the state written to X (the next GEMM's operand), x and W0 are
 // rounded (K2 calls it with BF16 = false and a `store`). MMA: the hidden
-// GEMMs run on tensor cores in 3xTF32 (mma_gemm, the output cut to the
-// layer's width) instead of FFMA gemm_tile (K1's f32 mode only). WROWS:
-// the rows of a resident weight tile and of X — 64 when every hidden width
-// is ≤ 64 (K1's narrow mode, MMA only), else 128.
+// GEMMs run on tensor cores, the output cut to the layer's width — in
+// 3xTF32 (mma_gemm), or with BF16 on bf16 tensor cores (mma_gemm_bf16,
+// which rounds the weights as it packs them) — instead of FFMA gemm_tile
+// (K1 sets it, K2 does not). WROWS: the rows of a resident weight tile and
+// of X — 64 when every hidden width is ≤ 64 (K1's narrow mode, MMA only),
+// else 128.
 template <int D, bool BF16 = false, bool MMA = false, int WROWS = MAXW>
 __device__ void forward_tile(float* X, const float* xs, const float* __restrict__ prm,
                              const Net& net, int act, float* wbase, bool stream,
@@ -354,18 +435,20 @@ __device__ void forward_tile(float* X, const float* xs, const float* __restrict_
     float* Wl = stream ? wbase : wbase + (l - 1) * WROWS * LDS;
     __syncthreads();
     if (stream) {
-      load_w<BF16>(prm + net.w_off[l], K, N, Wl);
+      load_w(prm + net.w_off[l], K, N, Wl);
       __syncthreads();
     }
     if constexpr (MMA) {
       if (WROWS <= 64 || N <= 64) {      // all 8 warps on 32 x 32 blocks
         float acc[2][4][4];
-        mma_gemm(Wl, X, K, N, C * T, acc);
+        if constexpr (BF16) mma_gemm_bf16(Wl, X, K, N, C * T, acc);
+        else mma_gemm(Wl, X, K, N, C * T, acc);
         __syncthreads();
         mma_store(X, acc);               // rows 64.. (past N) are never read
       } else {
         float acc[4][4][4];
-        mma_gemm(Wl, X, K, N, C * T, acc);
+        if constexpr (BF16) mma_gemm_bf16(Wl, X, K, N, C * T, acc);
+        else mma_gemm(Wl, X, K, N, C * T, acc);
         __syncthreads();
         mma_store(X, acc);
       }

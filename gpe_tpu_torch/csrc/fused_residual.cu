@@ -13,11 +13,12 @@
 // paper width 64) against ~24 bytes of input per point. f32 parity needs
 // each product in 3xTF32 (three TF32 tensor-core products), so the least
 // time is the GEMM FLOPs at the dense TF32 rate over three (495/3 = 165
-// TFLOP/s), the roof chip_smoke.py holds K1 to. Measured by clock64 per
-// phase (experiments/k1_variants.py --clocks), the GEMMs take ~60% of a
-// launch at width 128 and ~38% at width 64; the activations (σ, σ′, σ″
+// TFLOP/s), the roof chip_smoke.py holds K1 to; with bf16 operands one
+// bf16 tensor-core product each (989 TFLOP/s dense). Measured by clock64
+// per phase (experiments/k1_variants.py --clocks), the f32 GEMMs take ~60%
+// of a launch at width 128 and ~38% at width 64; the activations (σ, σ′, σ″
 // recomputed per unit and point), layer 0 and the last layer most of the
-// rest.
+// rest (the bf16 mode's split: experiments/bf16_variants.py --clocks).
 //
 // Design:
 // - Run axis, not lane packing. The TPU packs M = 128/w narrow nets
@@ -54,9 +55,13 @@
 // - Ragged edge: points past n load x = 0 and are masked out of the sums (a
 //   padded point's u(0) ≠ 0 must not contribute).
 // - compute_dtype = bf16 (template flag BF16, single runs; the run mode
-//   stays f32 as in JAX): every GEMM operand is rounded to bf16 where it is
-//   staged (common.cuh `op`) and the GEMMs run on FFMA gemm_tile, products
-//   and sums in f32, the arithmetic of the kernel before its redesign.
+//   stays f32 as in JAX): every GEMM operand is a bf16 value — x and the
+//   state rounded where they are written (common.cuh `op`), the hidden
+//   weights staged as f32 by the same cp.async and rounded as the GEMM
+//   packs them — and the hidden GEMMs run on bf16 tensor cores
+//   (common.cuh mma_gemm_bf16: mma.sync m16n8k16, f32 accumulators, the
+//   same warp blocks and width cut as the f32 mode). Products are exact;
+//   sums, biases and activations stay f32.
 #include "common.cuh"
 
 namespace gpe {
@@ -98,12 +103,8 @@ sums_kernel(const float* __restrict__ x, const float* __restrict__ V,
     const float* bl = blap ? blap + (size_t)run * blap_stride : nullptr;
     __syncthreads();                 // the previous item is done with Wsm, red
     if (resident && run != staged) {
-      for (int l = 1; l <= L - 2; ++l) {
-        float* dst = Wsm + (l - 1) * TILE;
-        if constexpr (BF16) load_w<true>(prm_r + net.w_off[l], net.dims[l],
-                                         net.dims[l + 1], dst);
-        else stage_w(prm_r + net.w_off[l], net.dims[l], net.dims[l + 1], dst);
-      }
+      for (int l = 1; l <= L - 2; ++l)
+        stage_w(prm_r + net.w_off[l], net.dims[l], net.dims[l + 1], Wsm + (l - 1) * TILE);
       staged = run;
     }
     const float gamma = scal[2 * run], scale = scal[2 * run + 1];
@@ -119,8 +120,8 @@ sums_kernel(const float* __restrict__ x, const float* __restrict__ V,
       }
       cp_async_wait_all();           // a new run's weights, staged above
       __syncthreads();
-      forward_tile<D, BF16, !BF16, WROWS>(X, xs, prm_r, net, ph.act, Wsm, !resident,
-                                          nullptr);
+      forward_tile<D, BF16, true, WROWS>(X, xs, prm_r, net, ph.act, Wsm, !resident,
+                                         nullptr);
       last_layer<D, BF16>(X, prm_r, net, outv);
       const int r = threadIdx.x;
       if (r < T && base + r < n) {

@@ -7,10 +7,11 @@
 // S = (Σ(Hu)², Σu·Hu, Σu², Σu²w).
 //
 // Bound on this card: operations. Each hidden layer is one (C·2T = 256) x K
-// x 128 f32 GEMM per tile, ~0.16 MFLOP per point at the bench's width 100,
-// against ~24 bytes of input per point: far above the f32 CUDA-core ridge
-// (~20 FLOP/B). The FFMA peak (67 TFLOP/s) is the roof; tensor cores would
-// mean TF32 and lose f32 parity.
+// x 128 GEMM per tile, ~0.16 MFLOP per point at the bench's width 100,
+// against ~24 bytes of input per point: far above every ridge. f32 parity
+// needs 3xTF32 on tensor cores (165 TFLOP/s, the roof chip_smoke.py holds
+// K4 to; the f32 mode still runs FFMA, 67 TFLOP/s); the bf16 operand mode
+// runs one bf16 tensor-core product per term (989 TFLOP/s dense).
 //
 // Design:
 // - The TPU kernel stacks the C = d+2 channels into the rows of a
@@ -28,8 +29,8 @@
 //   copying the next layer's (or the next tile's first) into the same tile,
 //   so the copy lands during the in-place store and the activation loop
 //   instead of stalling the block between two barriers.
-// - 256 threads, each an 8 (units) x 16 (rows) register tile of the
-//   128 x 256 output; a warp's 32 threads are 4 unit groups x 8 row groups,
+// - f32 GEMMs: 256 threads, each an 8 (units) x 16 (rows) register tile of
+//   the 128 x 256 output; a warp's 32 threads are 4 unit groups x 8 row groups,
 //   so each float4 operand load of a warp is one 128 B (or 64 B) wavefront.
 // - Layer 0 as the TPU kernel does it: v = x·W0 + b0, the Jacobian rows of
 //   layer 0 are the rows of W0 — d small dots, no GEMM.
@@ -39,8 +40,10 @@
 //   and are masked out of the sums.
 // - BF16 (compute_dtype = bf16): every GEMM operand — weights, state, x — is
 //   rounded to bf16 where it is staged (common.cuh `op`; the hidden weights'
-//   padded copy arrives rounded from the host, cp.async copying it as is);
-//   products and sums stay f32.
+//   padded copy arrives rounded from the host, cp.async copying it as is),
+//   and the hidden GEMMs run on bf16 tensor cores (gemm_inplace<true>:
+//   mma.sync m16n8k16, 64 x 64 warp blocks, f32 accumulators written back
+//   in place as the FFMA's are); products are exact, sums stay f32.
 #include "common.cuh"
 
 namespace gpe {
@@ -49,13 +52,28 @@ constexpr int ROWS4 = 256;             // stacked rows of one K4 tile
 constexpr int LDS4 = ROWS4 + 4;        // state row stride (floats), 16 B aligned
 constexpr int STATE4_FLOATS = MAXW * LDS4;
 
-// acc[e][f] = sum_{k < K} W[k*LDS + o(e)] * X[k*LDS4 + m(f)] over this
-// thread's units o(e) and rows m(f); then (after a barrier) written back
-// into X[o][m]. Units o ≥ the layer width have zero weight columns, so
-// their rows of X stay zero. Once every thread has read W, the copy of the
-// next weights (next_w, next_k; none when null) starts into W's tile.
-__device__ __forceinline__ void gemm_inplace(float* W, float* X, int K,
+// X[o][m] = sum_{k < K} W[k*LDS + o] * X[k*LDS4 + m] for the 128 units o
+// and 256 stacked rows m, computed into registers, then (after a barrier)
+// written back into X. Units o ≥ the layer width N have zero weight
+// columns, so their rows of X come out zero. Once every thread has read W,
+// the copy of the next weights (next_w, next_k; none when null) starts
+// into W's tile.
+// f32: FFMA, acc[e][f] over this thread's units o(e) and rows m(f).
+// BF16 (operands already bf16 values): bf16 tensor cores, common.cuh
+// mma_gemm_bf16 with warp w on units 64(w & 1) .. +63 (MT = 4) and rows
+// 64(w >> 1) .. +63 (eight n8 tiles), as many accumulators as FFMA's.
+template <bool BF16>
+__device__ __forceinline__ void gemm_inplace(float* W, float* X, int K, int N,
                                              const float4* next_w, int next_k) {
+  if constexpr (BF16) {
+    float acc[4][8][4];
+    mma_gemm_bf16<4, 8, LDS4>(W, X, K, N, ROWS4, acc);
+    __syncthreads();                   // every thread is done reading X and W
+    if (next_w) prefetch_w(next_w, next_k, W);
+    mma_store<4, 8, LDS4>(X, acc);
+    __syncthreads();
+    return;
+  }
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int o0 = 32 * (warp & 3) + 4 * (lane >> 3);    // + {0..3, 16..19}
   const int m0 = 128 * (warp >> 2) + 4 * (lane & 7);   // + 32 g + {0..3}
@@ -162,8 +180,8 @@ k4_kernel(const float* __restrict__ x, const float* __restrict__ V,
       const bool last = l == n_gemm;
       const float4* next = last ? wpad : wl + K * (MAXW / 4);
       const bool more = !last || tile + (int)gridDim.x < n_tiles;
-      gemm_inplace(Wsm, X, K, (n_gemm > 1 && more) ? next : nullptr,
-                   net.dims[last ? 1 : l + 1]);
+      gemm_inplace<BF16>(Wsm, X, K, N, (n_gemm > 1 && more) ? next : nullptr,
+                         net.dims[last ? 1 : l + 1]);
       wl += K * (MAXW / 4);
       const float* bl = prm + net.b_off[l];
       for (int idx = threadIdx.x; idx < N * T; idx += NT) {

@@ -11,7 +11,8 @@ Variants of the kernel as it stands (3xTF32 forward GEMMs):
 - as_is: the source unchanged;
 - ffma_forward: the f32 forward GEMMs on FFMA `gemm_tile` (the arithmetic
   before the redesign, with the new weight staging and item walk; one
-  block an SM, as gemm_tile needs 128-row tiles);
+  block an SM, as gemm_tile needs 128-row tiles; f32 only: its bf16 mode
+  would skip the weights' rounding, see bf16_variants.py's ffma);
 - tf32x1: one TF32 product per f32 product (hi·hi′ only), the error that
   the split removes;
 - one_block_per_sm: no narrow mode (128-row tiles, one block an SM, the
@@ -70,7 +71,7 @@ CMN = "common.cuh"
 # name -> [(file, text, replacement[, occurrences, default 1])]
 PATCHES = {
     "ffma": [
-        (K1, "forward_tile<D, BF16, !BF16, WROWS>(", "forward_tile<D, BF16, false, WROWS>("),
+        (K1, "forward_tile<D, BF16, true, WROWS>(", "forward_tile<D, BF16, false, WROWS>("),
     ],
     "wide": [       # one block an SM, 128-row tiles, whatever the widths
         (K1, "  bool narrow = !bf16 && n_layers - 2 <= 2;\n", "  bool narrow = false;\n"),

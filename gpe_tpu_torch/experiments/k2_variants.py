@@ -207,11 +207,13 @@ def write_variant(name: str, patches, root, csrc=None) -> None:
 
 
 def build(sources: dict, source: str = K2, bind=None) -> dict:
-    """{name: dir} -> {name: loaded library} of dir/`source`, one nvcc each,
-    all at once; `bind` (default: K2's) declares the entry points."""
+    """{name: dir} -> {name: loaded library} of dir/`source` (as
+    dir/lib<stem>.so, so one dir can hold several), one nvcc each, all at
+    once; `bind` (default: K2's) declares the entry points."""
     nvcc = _build._nvcc()
+    out = f"lib{source.rsplit('.', 1)[0]}.so"
     procs = {n: subprocess.Popen(
-        [nvcc, *_build.NVCC_FLAGS, "-I", str(d), "-o", str(d / "lib.so"), str(d / source)],
+        [nvcc, *_build.NVCC_FLAGS, "-I", str(d), "-o", str(d / out), str(d / source)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for n, d in sources.items()}
     libs = {}
@@ -222,7 +224,7 @@ def build(sources: dict, source: str = K2, bind=None) -> dict:
         regs = sorted({ln.split("Used ")[1].split(",")[0] for ln in log.splitlines()
                        if "Used " in ln})
         print(f"built {n}: {', '.join(regs)}", flush=True)
-        lib = ctypes.CDLL(str(sources[n] / "lib.so"))
+        lib = ctypes.CDLL(str(sources[n] / out))
         lib.gpe_error_string.restype = ctypes.c_char_p
         lib.gpe_error_string.argtypes = [ctypes.c_int]
         (bind or k2._bind)(lib)

@@ -1,5 +1,5 @@
-"""The kernels that a change of K1 leaves alone, against a parent checkout's
-build of the same sources, bit for bit.
+"""The kernels that a change of the bf16 operand modes leaves alone, against
+a parent checkout's build of the same sources, bit for bit.
 
     python -m gpe_tpu_torch.experiments.parent_bits --parent <checkout>/gpe_tpu_torch/csrc
 
@@ -7,13 +7,13 @@ Builds the parent's `fused_grad.cu`, `rowcat_eval.cu` and
 `fused_residual.cu` (under `build/parent_bits/`; their C entry points must
 be the port's) and runs each of these with the port's library, then with
 the parent's, on chip_smoke.py's inputs:
-- K2 at the main shape (gpe2d_ground_state: 50,176 points,
-  [2,128,128,128,1], γ = 5, s = 0.05) and K3 grads at harmonic_paper (six
-  runs of [1,64,64,64,1] on 4,000 points), each with the cotangents of the
-  plain version's sums, so that K1's own sums do not enter: gradients and
-  sums;
-- K1 with bf16 operands, K4 and K4 with bf16 operands at the benchmark's
-  shape (50,176 points, [2,100,100,100,1], γ = 5, s = 0.05): the sums.
+- K1 (f32) and K2 at the main shape (gpe2d_ground_state: 50,176 points,
+  [2,128,128,128,1], γ = 5, s = 0.05), K3 sums and K3 grads at
+  harmonic_paper (six runs of [1,64,64,64,1] on 4,000 points); K2 and K3
+  grads with the cotangents of the plain version's sums, so that K1's own
+  sums do not enter: sums, and gradients with their sums;
+- K4 (f32) at the benchmark's shape (50,176 points, [2,100,100,100,1],
+  γ = 5, s = 0.05): the sums.
 Prints the card, then one JSON line: per kernel, whether every output
 equals the parent's to the bit. Exits 1 if one does not. Needs a CUDA
 device.
@@ -81,16 +81,14 @@ def calls(dev) -> dict:
     ba = (bparams, bb["x"], bb["V"], bb["w"], 5.0, 0.05, bb.get("base_val"),
           bb.get("base_lap"))
     bkw = _phys(bspec)
-    bf16 = torch.bfloat16
     return {
+        "K1": ("fused_residual", lambda: k1.collocation_sums(*a, *base, **kw)),
+        "K3 sums": ("fused_residual",
+                    lambda: k1.collocation_sums_runs(*ra, *rbase, **rkw)),
         "K2": ("fused_grad", lambda: k2.collocation_grads(*a, cots, *base, **kw)),
         "K3 grads": ("fused_grad",
                      lambda: k2.collocation_grads_runs(*ra, rcots, *rbase, **rkw)),
-        "K1 bf16": ("fused_residual",
-                    lambda: k1.collocation_sums(*ba, **bkw, compute_dtype=bf16)),
         "K4": ("rowcat_eval", lambda: k4.collocation_sums(*ba, **bkw)),
-        "K4 bf16": ("rowcat_eval",
-                    lambda: k4.collocation_sums(*ba, **bkw, compute_dtype=bf16)),
     }
 
 

@@ -218,13 +218,16 @@ def test_k4_matches_plain_and_k1_on_the_card(cuda_device, layers, n):
         np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=1e-4)
 
 
-@pytest.mark.parametrize("layers,n", K4_CASES[:3])
+@pytest.mark.parametrize("layers,n", K4_CASES)
 def test_bf16_operand_modes_match_their_plain_versions_on_the_card(cuda_device,
                                                                   layers, n):
-    """K1 and K4 with bf16 GEMM operands against the bf16 plain version
-    (rel 1e-4, K1's f32 limit: both round the same operands; an f32 value
-    within f32 round-off of a bf16 rounding boundary may round the other way,
-    a 2^-8 change of one term), and within the bench's 0.1 of the f32 sums."""
+    """K1 and K4 with bf16 GEMM operands (bf16 tensor-core hidden GEMMs)
+    against the bf16 plain version (rel 1e-4, K1's f32 limit: both round the
+    same operands; an f32 value within f32 round-off of a bf16 rounding
+    boundary may round the other way, a 2^-8 change of one term), and within
+    the bench's 0.1 of the f32 sums: widths 32–128, contraction tails of 4
+    (width 100) and 8 (width 40), d = 1..3, ragged n, no, one or several
+    hidden GEMM layers (K1 streams the weights of three)."""
     params, x, V, w, bval, blap = _inputs(layers, n, cuda_device)
     phys = ("shifted_tanh", 3.0, 0.5, "abs_power")
     bf16 = torch.bfloat16
@@ -238,6 +241,21 @@ def test_bf16_operand_modes_match_their_plain_versions_on_the_card(cuda_device,
         np.testing.assert_allclose(got, want, rtol=1e-4)
         np.testing.assert_allclose(got, f32, rtol=0.1)
         assert not np.array_equal(got, f32)
+
+
+@pytest.mark.parametrize("mod", [k1, k4], ids=["K1", "K4"])
+def test_bf16_operand_modes_keep_parity_at_weights_x4(cuda_device, mod):
+    """K1 and K4 with bf16 operands and weights scaled x4 against the bf16
+    plain version, rel 1e-4 per sum as the f32 x4 tests: at the bench's width
+    100 (a contraction tail of 4), where saturated activations make the
+    sums most sensitive to the tensor cores' other order of the f32 sums."""
+    params, x, V, w, bval, blap = _inputs((2, 100, 100, 100, 1), 3000, cuda_device,
+                                          w_scale=4.0)
+    args = (params, x, V, w, 5.0, 0.05, bval, blap, "shifted_tanh", 3.0, 0.5,
+            "abs_power")
+    got = mod.collocation_sums(*args, compute_dtype=torch.bfloat16)
+    want = mod.collocation_sums_plain(*args, compute_dtype=torch.bfloat16)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4)
 
 
 def test_k4_eval_refuses_ragged_counts_and_counts_launches(cuda_device):

@@ -363,3 +363,28 @@ def test_k1_variant_patches_apply_to_the_kernel_source(variant, tmp_path):
     assert (out == src) == (not patches)
     if variant.endswith("+clocks"):
         assert "gpe_k1_clocks" in out[0] and "CLK(" in out[1]
+
+
+@pytest.mark.parametrize("variant", ["as_is", "ffma", "rounded_staging", "split_tail",
+                                     "no_operand_loads",
+                                     "as_is+clocks", "parent+clocks"])
+def test_bf16_variant_patches_apply_to_the_kernel_source(variant, tmp_path):
+    """experiments/bf16_variants.py's patches of csrc/fused_residual.cu,
+    csrc/rowcat_eval.cu and csrc/common.cuh still find their anchor text,
+    each the expected number of times, and change the source (the build and
+    the timing need the card). The clock marks ("parent+clocks" alone) must
+    apply to a parent checkout's sources too; their anchors are text this
+    change left as it was."""
+    from gpe_tpu_torch.experiments import bf16_variants as bv
+    from gpe_tpu_torch.kernels import _build
+
+    patches = bv.patches_of(variant)
+    bv.write_variant(variant, patches, tmp_path)
+    files = ("fused_residual.cu", "rowcat_eval.cu", "common.cuh")
+    src = [(_build.CSRC / f).read_text() for f in files]
+    out = [(tmp_path / variant / f).read_text() for f in files]
+    assert (out == src) == (not patches)
+    touched = {f for f, *_ in patches}
+    assert all((o != s) == (f in touched) for f, o, s in zip(files, out, src))
+    if variant.endswith("+clocks"):
+        assert "gpe_k1_clocks" in out[0] and "gpe_k4_clocks" in out[1] and "CLK(" in out[2]
