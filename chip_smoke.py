@@ -672,7 +672,7 @@ def phase_k4(spec, batch, params, label):
     b_ms, b_by = bound(spec.layers, batch["x"].shape[0], grad=False)
     log(f"K4 {label} timing: kernel {ms:.4f} ms (per call {call_ms:.4f}), K1 "
         f"{k1_ms:.4f} ms, plain {plain_ms:.4f} ms, nested autograd {lib_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
+        f"bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of it")
     return {"name": "rowcat_eval", "route": "cuda",
             "source": "gpe_tpu_torch/csrc/rowcat_eval.cu",
             "replaces": "gpe_tpu/pallas/rowcat_eval.py:180",
@@ -847,7 +847,9 @@ def main() -> int:
     phase_width100(bspec, bbatch, bparams)
     kernels.append(phase_k4(bspec, bbatch, bparams, "bench shape"))
     main = main_shape(dev)[1:]
-    kernels[-1]["main_shape_ms"] = phase_k4(*main, "main shape")["ms"]
+    k4_main = phase_k4(*main, "main shape")
+    kernels[-1].update(main_shape_ms=k4_main["ms"],
+                       main_shape_bound_ms=k4_main["bound_ms"])
     kernels += phase_bf16(bspec, bbatch, bparams, main)
     del main
     del bbatch, bparams

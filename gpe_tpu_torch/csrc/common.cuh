@@ -12,13 +12,13 @@
 //     C[i][j] = sum_q A[q*LDS + i] * B[q*LDS + j].
 // gemm_tile runs them on CUDA cores in f32 FFMA, 256 threads each on an
 // 8 x 8 register tile of the 128 x 128 output, float4 operand loads: K2's
-// forward GEMMs (K4's f32 mode has its own FFMA GEMM in rowcat_eval.cu).
-// mma_gemm runs them on tensor cores in 3xTF32 (each operand split in two
-// TF32 terms, three products, ~2^-21 relative per product; one TF32
-// product keeps ~3 decimal digits, which breaks parity with the f32
-// reference): K2's reverse GEMMs and K1's f32 forward GEMMs (forward_tile's
-// MMA flag), so f32 parity holds at the TF32 rate over three. In the bf16
-// operand mode (template flag BF16, K1 and K4 only) every GEMM operand —
+// forward GEMMs. mma_gemm runs them on tensor cores in 3xTF32 (each
+// operand split in two TF32 terms, three products, ~2^-21 relative per
+// product; one TF32 product keeps ~3 decimal digits, which breaks parity
+// with the f32 reference): K2's reverse GEMMs, K1's f32 forward GEMMs
+// (forward_tile's MMA flag) and K4's f32 GEMMs (64 x 64 warp blocks of its
+// 128 x 256 output), so f32 parity holds at the TF32 rate over three. In
+// the bf16 operand mode (template flag BF16, K1 and K4 only) every GEMM operand —
 // weights, channel state, layer 0's input x — is a bf16 value (nearest
 // even): the state and x are rounded where they are written (`op`), the
 // hidden weights by mma_gemm_bf16 as it packs its fragments (K4's padded
@@ -170,12 +170,13 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Start the copy of a weight matrix padded to K rows x 128 columns (16 B
-// aligned) into dst[k*LDS + o]; it lands while the block does other work,
-// and cp_async_wait_all() + a barrier make it visible.
+// aligned) into dst[k*LD + o] (LD a multiple of 4); it lands while the
+// block does other work, and cp_async_wait_all() + a barrier make it visible.
+template <int LD = LDS>
 __device__ __forceinline__ void prefetch_w(const float4* __restrict__ Wp, int K,
                                            float* dst) {
   for (int i = threadIdx.x; i < K * (MAXW / 4); i += NT)
-    cp_async16(dst + (i / (MAXW / 4)) * LDS + 4 * (i % (MAXW / 4)), Wp + i);
+    cp_async16(dst + (i / (MAXW / 4)) * LD + 4 * (i % (MAXW / 4)), Wp + i);
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
@@ -219,67 +220,69 @@ __device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// A GEMM in 3xTF32 (K2's reverse GEMMs, K1's forward ones), gemm_tile's
-// operand convention:
-//   C[i][j] = Σ_{q < P} A[q·LDS + i]·B[q·LDS + j]  for i < rows, j < cols
+// A GEMM in 3xTF32 (K2's reverse GEMMs, K1's forward ones, K4's f32 ones),
+// gemm_tile's operand convention with the row strides template parameters:
+//   C[i][j] = Σ_{q < P} A[q·LDA + i]·B[q·LDB + j]  for i < rows, j < cols
 // (P ≤ 128; entries past rows/cols are not read, or come out 0). With MT
-// m16 tiles a warp (4: the 128 x 128 output; 2: its first 64 rows, for
-// rows ≤ 64), warp w owns rows i0 = 16·MT(w & 1) .. +16·MT−1 and columns
-// j0 = 32(w >> 1) .. +31; lane (g, t) holds acc[mt][nt] = C at rows
-// i0 + 16mt + (g, g + 8) x columns j0 + 8nt + (2t, 2t + 1). Each output
-// entry gets the same products in the same order whatever MT is. A warp
-// whose block lies wholly past rows or cols skips the work; inside a block
-// nothing is skipped, since a guard per m16n8 tile serialises the
-// tensor-core instructions. Each k8 slab issues all 4·MT tiles' hi·lo′
-// terms, then their lo·hi′, then hi·hi′: per accumulator the small products
-// come first, and adjacent mma.sync are independent.
-template <int MT>
+// m16 tiles and NTL n8 tiles a warp (MT 4: 128 output rows; 2: the first
+// 64, for rows ≤ 64; NTL 4: K1's and K2's 128 x 128 output, 8: K4's
+// 128 x 256), warp w owns rows i0 = 16·MT(w & 1) .. +16·MT−1 and columns
+// j0 = 8·NTL(w >> 1) .. +8·NTL−1; lane (g, t) holds acc[mt][nt] = C at
+// rows i0 + 16mt + (g, g + 8) x columns j0 + 8nt + (2t, 2t + 1). Each
+// output entry gets the same products in the same order whatever MT and
+// NTL are. A warp whose block lies wholly past rows or cols skips the
+// work; inside a block nothing is skipped, since a guard per m16n8 tile
+// serialises the tensor-core instructions. Each k8 slab splits the MT A
+// tiles once, then takes the n8 tiles one at a time: it splits that B
+// tile and issues its MT hi·lo′ terms, then lo·hi′, then hi·hi′ (per
+// accumulator the small products come first; adjacent mma.sync are
+// independent). One B tile's split at a time keeps K4's 128 accumulators
+// and A splits within the register budget of one block an SM. Lane (g, t)
+// loads rows t and t + 4 at column g: with strides ≡ 8 (mod 32) floats
+// (K4's) they fall on banks 8t + g, conflict-free; at ≡ 4 (K1's and K2's
+// LDS) on 4t + g, two ways on 12 of the 20 banks.
+template <int MT, int NTL = 4, int LDB = LDS, int LDA = LDS>
 __device__ __forceinline__ void mma_gemm(const float* __restrict__ A,
                                          const float* __restrict__ B, int P,
-                                         int rows, int cols, float (&acc)[MT][4][4]) {
+                                         int rows, int cols, float (&acc)[MT][NTL][4]) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int i0 = 16 * MT * (warp & 1), j0 = 32 * (warp >> 1);
+  const int i0 = 16 * MT * (warp & 1), j0 = 8 * NTL * (warp >> 1);
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+    for (int nt = 0; nt < NTL; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
   if (i0 >= rows || j0 >= cols) return;
-  const float* a = A + t * LDS + i0 + g;
-  const float* b = B + t * LDS + j0 + g;
+  const float* a = A + t * LDA + i0 + g;
+  const float* b = B + t * LDB + j0 + g;
   for (int q0 = 0; q0 < P; q0 += 8) {
     const bool in0 = q0 + t < P, in1 = q0 + t + 4 < P;   // rows q0+t, q0+t+4
-    const float* aq = a + q0 * LDS;
-    const float* bq = b + q0 * LDS;
-    uint32_t ah[MT][4], al[MT][4], bh[4][2], bl[4][2];
+    const float* aq = a + q0 * LDA;
+    const float* bq = b + q0 * LDB;
+    uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
       const float* p = aq + 16 * mt;
       split_tf32(in0 ? p[0] : 0.f, ah[mt][0], al[mt][0]);             // (g,   t)
       split_tf32(in0 ? p[8] : 0.f, ah[mt][1], al[mt][1]);             // (g+8, t)
-      split_tf32(in1 ? p[4 * LDS] : 0.f, ah[mt][2], al[mt][2]);       // (g,   t+4)
-      split_tf32(in1 ? p[4 * LDS + 8] : 0.f, ah[mt][3], al[mt][3]);   // (g+8, t+4)
+      split_tf32(in1 ? p[4 * LDA] : 0.f, ah[mt][2], al[mt][2]);       // (g,   t+4)
+      split_tf32(in1 ? p[4 * LDA + 8] : 0.f, ah[mt][3], al[mt][3]);   // (g+8, t+4)
     }
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
+    for (int nt = 0; nt < NTL; ++nt) {
       const float* p = bq + 8 * nt;
-      split_tf32(in0 ? p[0] : 0.f, bh[nt][0], bl[nt][0]);             // (k = t,   n = g)
-      split_tf32(in1 ? p[4 * LDS] : 0.f, bh[nt][1], bl[nt][1]);       // (k = t+4, n = g)
+      uint32_t bh[2], bl[2];
+      split_tf32(in0 ? p[0] : 0.f, bh[0], bl[0]);                     // (k = t,   n = g)
+      split_tf32(in1 ? p[4 * LDB] : 0.f, bh[1], bl[1]);               // (k = t+4, n = g)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) mma_tf32(acc[mt][nt], ah[mt], bl);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) mma_tf32(acc[mt][nt], al[mt], bh);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) mma_tf32(acc[mt][nt], ah[mt], bh);
     }
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], ah[mt], bl[nt]);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], al[mt], bh[nt]);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], ah[mt], bh[nt]);
   }
 }
 

@@ -10,8 +10,8 @@
 // x 128 GEMM per tile, ~0.16 MFLOP per point at the bench's width 100,
 // against ~24 bytes of input per point: far above every ridge. f32 parity
 // needs 3xTF32 on tensor cores (165 TFLOP/s, the roof chip_smoke.py holds
-// K4 to; the f32 mode still runs FFMA, 67 TFLOP/s); the bf16 operand mode
-// runs one bf16 tensor-core product per term (989 TFLOP/s dense).
+// K4 to), which the f32 mode runs; the bf16 operand mode runs one bf16
+// tensor-core product per term (989 TFLOP/s dense).
 //
 // Design:
 // - The TPU kernel stacks the C = d+2 channels into the rows of a
@@ -19,19 +19,23 @@
 //   form on the card (a 128-row stacked tile, T = 128/C points). K4 stacks
 //   twice the rows: a 256-row block of 2T points (64 points at d = 2), so each
 //   weight element read from shared memory feeds twice the rows.
-// - State X[unit][m] (128 units x 256 stacked rows, stride LDS4 = 260 floats,
-//   133 KB) and one layer's weights W[k][o] (128 x LDS, 68 KB) share 200 KB
-//   of shared memory; a ping-pong state pair like the TPU's st/st2 does not
-//   fit, so each GEMM writes its output back into X in place after a
-//   barrier. Weights are streamed per layer (kept resident when the net has
-//   one hidden GEMM layer) from a copy the host pads to 128 columns (JAX's
-//   _pad_params): as soon as a GEMM has read its weights, cp.async starts
-//   copying the next layer's (or the next tile's first) into the same tile,
-//   so the copy lands during the in-place store and the activation loop
-//   instead of stalling the block between two barriers.
-// - f32 GEMMs: 256 threads, each an 8 (units) x 16 (rows) register tile of
-//   the 128 x 256 output; a warp's 32 threads are 4 unit groups x 8 row groups,
-//   so each float4 operand load of a warp is one 128 B (or 64 B) wavefront.
+// - State X[unit][m] (128 units x 256 stacked rows, stride 264 floats in
+//   f32, 260 in bf16: LDX) and one layer's weights W[k][o] (128 x 136 or
+//   132: LDW) share 205 KB (f32) or 201 KB (bf16) of shared memory; a
+//   ping-pong state pair like the TPU's st/st2 does not fit, so each GEMM
+//   writes its output back into X in place after a barrier. Weights are
+//   streamed per layer (kept resident when the net has one hidden GEMM
+//   layer) from a copy the host pads to 128 columns (JAX's _pad_params): as
+//   soon as a GEMM has read its weights, cp.async starts copying the next
+//   layer's (or the next tile's first) into the same tile, so the copy lands
+//   during the in-place store and the activation loop instead of stalling
+//   the block between two barriers.
+// - Hidden GEMMs on tensor cores (gemm_inplace): 64 x 64 warp blocks of the
+//   128 x 256 output, 128 f32 accumulators a thread; in f32 3xTF32
+//   (mma.sync m16n8k8, common.cuh mma_gemm), each B fragment split as it is
+//   used so the accumulators and A's splits fit one block an SM. The f32
+//   strides ≡ 8 (mod 32) keep its fragment loads conflict-free (3% faster
+//   than ≡ 4 on an H100: k4_variants.py's stride4).
 // - Layer 0 as the TPU kernel does it: v = x·W0 + b0, the Jacobian rows of
 //   layer 0 are the rows of W0 — d small dots, no GEMM.
 // - Persistent blocks (grid ≤ SM count) walk the tiles; each block writes
@@ -42,75 +46,41 @@
 //   rounded to bf16 where it is staged (common.cuh `op`; the hidden weights'
 //   padded copy arrives rounded from the host, cp.async copying it as is),
 //   and the hidden GEMMs run on bf16 tensor cores (gemm_inplace<true>:
-//   mma.sync m16n8k16, 64 x 64 warp blocks, f32 accumulators written back
-//   in place as the FFMA's are); products are exact, sums stay f32.
+//   mma.sync m16n8k16, the f32 mode's warp blocks and write-back, f32
+//   accumulators); products are exact, sums stay f32.
 #include "common.cuh"
 
 namespace gpe {
 
 constexpr int ROWS4 = 256;             // stacked rows of one K4 tile
-constexpr int LDS4 = ROWS4 + 4;        // state row stride (floats), 16 B aligned
-constexpr int STATE4_FLOATS = MAXW * LDS4;
+// Row strides (floats, 16 B aligned) of the state X and of the weight tile
+// by operand mode, each conflict-free for its GEMM's fragment loads: ≡ 8
+// (mod 32) in f32 (mma_gemm: rows t and t+4 at column g, banks 8t + g), ≡ 4
+// in bf16 (mma_gemm_bf16: rows 2t and 2t+1, banks 8t + g and 8t + 4 + g).
+template <bool BF16> constexpr int LDX = ROWS4 + (BF16 ? 4 : 8);
+template <bool BF16> constexpr int LDW = MAXW + (BF16 ? 4 : 8);
+static_assert(LDW<true> == LDS, "mma_gemm_bf16 reads the weight tile at LDS");
 
-// X[o][m] = sum_{k < K} W[k*LDS + o] * X[k*LDS4 + m] for the 128 units o
-// and 256 stacked rows m, computed into registers, then (after a barrier)
-// written back into X. Units o ≥ the layer width N have zero weight
-// columns, so their rows of X come out zero. Once every thread has read W,
-// the copy of the next weights (next_w, next_k; none when null) starts
-// into W's tile.
-// f32: FFMA, acc[e][f] over this thread's units o(e) and rows m(f).
-// BF16 (operands already bf16 values): bf16 tensor cores, common.cuh
-// mma_gemm_bf16 with warp w on units 64(w & 1) .. +63 (MT = 4) and rows
-// 64(w >> 1) .. +63 (eight n8 tiles), as many accumulators as FFMA's.
+// X[o][m] = sum_{k < K} W[k*LW + o] * X[k*LX + m] for the 128 units o
+// and 256 stacked rows m, on tensor cores into registers, then (after a
+// barrier) written back into X. Warp w takes units 64(w & 1) .. +63 (MT =
+// 4 m16 tiles) and rows 64(w >> 1) .. +63 (eight n8 tiles); a warp whose
+// units all lie at or past the layer width N skips its GEMM, and units
+// o ≥ N have zero weight columns, so their rows of X come out zero. Once
+// every thread has read W, the copy of the next weights (next_w, next_k;
+// none when null) starts into W's tile.
+// f32: 3xTF32, common.cuh mma_gemm (f32 parity).
+// BF16 (operands already bf16 values): bf16 tensor cores, mma_gemm_bf16.
 template <bool BF16>
 __device__ __forceinline__ void gemm_inplace(float* W, float* X, int K, int N,
                                              const float4* next_w, int next_k) {
-  if constexpr (BF16) {
-    float acc[4][8][4];
-    mma_gemm_bf16<4, 8, LDS4>(W, X, K, N, ROWS4, acc);
-    __syncthreads();                   // every thread is done reading X and W
-    if (next_w) prefetch_w(next_w, next_k, W);
-    mma_store<4, 8, LDS4>(X, acc);
-    __syncthreads();
-    return;
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int o0 = 32 * (warp & 3) + 4 * (lane >> 3);    // + {0..3, 16..19}
-  const int m0 = 128 * (warp >> 2) + 4 * (lane & 7);   // + 32 g + {0..3}
-  float acc[8][16];
-#pragma unroll
-  for (int e = 0; e < 8; ++e)
-#pragma unroll
-    for (int f = 0; f < 16; ++f) acc[e][f] = 0.f;
-#pragma unroll 2
-  for (int k = 0; k < K; ++k) {
-    const float* wk = W + k * LDS + o0;
-    const float* xk = X + k * LDS4 + m0;
-    const float4 a0 = *reinterpret_cast<const float4*>(wk);
-    const float4 a1 = *reinterpret_cast<const float4*>(wk + 16);
-    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    float bv[16];
-#pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      const float4 b = *reinterpret_cast<const float4*>(xk + 32 * g);
-      bv[4 * g] = b.x; bv[4 * g + 1] = b.y; bv[4 * g + 2] = b.z; bv[4 * g + 3] = b.w;
-    }
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-#pragma unroll
-      for (int f = 0; f < 16; ++f) acc[e][f] = fmaf(av[e], bv[f], acc[e][f]);
-  }
+  constexpr int LX = LDX<BF16>, LW = LDW<BF16>;
+  float acc[4][8][4];
+  if constexpr (BF16) mma_gemm_bf16<4, 8, LX>(W, X, K, N, ROWS4, acc);
+  else mma_gemm<4, 8, LX, LW>(W, X, K, N, ROWS4, acc);
   __syncthreads();                     // every thread is done reading X and W
-  if (next_w) prefetch_w(next_w, next_k, W);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    float* row = X + (o0 + (e < 4 ? e : 12 + e)) * LDS4 + m0;
-#pragma unroll
-    for (int g = 0; g < 4; ++g)
-      *reinterpret_cast<float4*>(row + 32 * g) =
-          make_float4(acc[e][4 * g], acc[e][4 * g + 1], acc[e][4 * g + 2],
-                      acc[e][4 * g + 3]);
-  }
+  if (next_w) prefetch_w<LW>(next_w, next_k, W);
+  mma_store<4, 8, LX>(X, acc);
   __syncthreads();
 }
 
@@ -122,10 +92,11 @@ k4_kernel(const float* __restrict__ x, const float* __restrict__ V,
           const float4* __restrict__ wpad, Net net, Phys ph,
           const float* __restrict__ scal, int n, float* __restrict__ partial) {
   constexpr int C = D + 2, T = 2 * (MAXW / C);         // points per tile
+  constexpr int LX = LDX<BF16>;
   static_assert(C * T <= ROWS4, "stacked rows exceed the block");
   extern __shared__ float4 smem4[];
   float* X = reinterpret_cast<float*>(smem4);
-  float* Wsm = X + STATE4_FLOATS;
+  float* Wsm = X + MAXW * LX;
   __shared__ float xs[T * D];
   __shared__ float outv[ROWS4];
 
@@ -139,8 +110,8 @@ k4_kernel(const float* __restrict__ x, const float* __restrict__ V,
   const float* Wout = prm + net.w_off[L - 1];
   const int N0 = net.dims[1], KL = net.dims[L - 1];
 
-  for (int i = threadIdx.x; i < STATE4_FLOATS; i += NT) X[i] = 0.f;
-  if (n_gemm > 0) prefetch_w(wpad, net.dims[1], Wsm);   // the first tile's W_1
+  for (int i = threadIdx.x; i < MAXW * LX; i += NT) X[i] = 0.f;
+  if (n_gemm > 0) prefetch_w<LDW<BF16>>(wpad, net.dims[1], Wsm);  // first tile's W_1
   float acc0 = 0.f, acc1 = 0.f, acc2 = 0.f, acc3 = 0.f;
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
@@ -163,7 +134,7 @@ k4_kernel(const float* __restrict__ x, const float* __restrict__ V,
       }
       float s0, s1, s2, s3;
       act_quad(ph.act, z + b0[o], s0, s1, s2, s3);
-      float* xo = X + o * LDS4;
+      float* xo = X + o * LX;
       xo[r] = op<BF16>(s0);
 #pragma unroll
       for (int i = 0; i < D; ++i) xo[(1 + i) * T + r] = op<BF16>(s1 * wv[i]);
@@ -186,7 +157,7 @@ k4_kernel(const float* __restrict__ x, const float* __restrict__ V,
       const float* bl = prm + net.b_off[l];
       for (int idx = threadIdx.x; idx < N * T; idx += NT) {
         const int o = idx / T, r = idx % T;
-        float* xo = X + o * LDS4;
+        float* xo = X + o * LX;
         const float z = xo[r] + bl[o];
         float jz[D], g2 = 0.f;
 #pragma unroll
@@ -207,7 +178,7 @@ k4_kernel(const float* __restrict__ x, const float* __restrict__ V,
     // output layer (width 1): out[m] = sum_k X[k][m] W[k]
     for (int m = threadIdx.x; m < C * T; m += NT) {
       float s = 0.f;
-      for (int k = 0; k < KL; ++k) s = fmaf(X[k * LDS4 + m], op<BF16>(Wout[k]), s);
+      for (int k = 0; k < KL; ++k) s = fmaf(X[k * LX + m], op<BF16>(Wout[k]), s);
       outv[m] = s;
     }
     __syncthreads();
@@ -257,7 +228,7 @@ int launch_k4(const float* x, const float* V, const float* w, const float* bval,
               const float* blap, const float* prm, const float4* wpad, const Net& net,
               const Phys& ph, const float* scal, int n, float* partial,
               int n_blocks, float* out, cudaStream_t stream) {
-  const size_t smem = (size_t)(STATE4_FLOATS + TILE_FLOATS) * sizeof(float);
+  const size_t smem = (size_t)MAXW * (LDX<BF16> + LDW<BF16>) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       k4_kernel<D, BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

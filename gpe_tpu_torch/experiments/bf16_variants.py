@@ -12,8 +12,9 @@ Variants:
 - as_is: the sources unchanged (hidden GEMMs on bf16 tensor cores,
   mma.sync m16n8k16 with f32 accumulators);
 - ffma: both kernels' bf16 hidden GEMMs back on FFMA (K1: gemm_tile, its
-  resident weights rounded as they are staged; K4: the f32 mode's
-  gemm_inplace), the arithmetic before the redesign;
+  resident weights rounded as they are staged; K4: k4_variants.py's ffma
+  patch, the FFMA loop, run on the bf16 operands), the arithmetic before
+  the redesign;
 - rounded_staging: K1-bf16's resident weights rounded to bf16 by the
   synchronous loop load_w<true> instead of copied by cp.async as f32 and
   rounded as the GEMM packs them (the same bits);
@@ -46,8 +47,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
-import subprocess
 import time
 from pathlib import Path
 
@@ -60,6 +59,10 @@ from gpe_tpu_torch.experiments.k1_variants import CLOCK_PATCH as K1_CLOCK_PATCH
 from gpe_tpu_torch.experiments.k1_variants import PHASES as K1_PHASES
 from gpe_tpu_torch.experiments.k1_variants import _rel, _scaled_inputs
 from gpe_tpu_torch.experiments.k2_variants import build, clocks, use, write_variant
+from gpe_tpu_torch.experiments.k4_variants import CLOCK_PATCH as K4_CLOCK_PATCH
+from gpe_tpu_torch.experiments.k4_variants import PATCHES as K4_PATCHES
+from gpe_tpu_torch.experiments.k4_variants import PHASES as K4_PHASES
+from gpe_tpu_torch.experiments.k4_variants import sass_report
 from gpe_tpu_torch.kernels import _build
 from gpe_tpu_torch.kernels import fused_residual as k1
 from gpe_tpu_torch.kernels import rowcat_eval as k4
@@ -94,8 +97,8 @@ PATCHES = {
         (CMN, "      load_w(prm + net.w_off[l], K, N, Wl);",
          "      load_w<BF16>(prm + net.w_off[l], K, N, Wl);"),
     ],
-    "ffma_k4": [
-        (K4, "      gemm_inplace<BF16>(", "      gemm_inplace<false>("),
+    "ffma_k4": K4_PATCHES["ffma"] + K4_PATCHES["stride4"] + [   # gemm_inplace<false>
+        (K4, "      gemm_inplace<BF16>(", "      gemm_inplace<false>("),   # made FFMA, both modes
     ],
     "round_staged": [
         (CMN, "__device__ __forceinline__ void load_w(",
@@ -131,31 +134,7 @@ VARIANTS = {
     "no_operand_loads": (("no_loads",), False),
 }
 
-# K4's clock64 marks, the same scheme as k1_variants.py's (whose marks in
-# common.cuh and fused_residual.cu clock K1-bf16)
-K4_PHASES = ["x load", "layer 0 (+ W_1 wait)", "hidden GEMMs + store",
-             "activations (+ weight wait)", "last layer + Hamiltonian (+ set-up)"]
-K4_CLOCK_PATCH = [
-    (K4, "  float acc0 = 0.f, acc1 = 0.f, acc2 = 0.f, acc3 = 0.f;\n\n",
-     "  float acc0 = 0.f, acc1 = 0.f, acc2 = 0.f, acc3 = 0.f;\n  long long t_clk = clock64();\n\n"),
-    (K4, "    __syncthreads();                   // the previous tile is done with xs, X, outv\n",
-     "    __syncthreads();                   // the previous tile is done with xs, X, outv\n"
-     "    CLK(4);\n"),
-    (K4, "    __syncthreads();\n    // layer 0: v = x·W0",
-     "    __syncthreads();\n    CLK(0);\n    // layer 0: v = x·W0"),
-    (K4, "      __syncthreads();                 // W_l landed for every thread; X written\n",
-     "      __syncthreads();                 // W_l landed for every thread; X written\n"
-     "      CLK(l == 1 ? 1 : 3);\n"),
-    (K4, "      wl += K * (MAXW / 4);\n", "      CLK(2);\n      wl += K * (MAXW / 4);\n"),
-    (K4, "    __syncthreads();\n    // output layer (width 1)",
-     "    __syncthreads();\n    CLK(n_gemm > 0 ? 3 : 1);\n    // output layer (width 1)"),
-    (K4, 'extern "C" int gpe_k4_sums(',
-     'extern "C" int gpe_k4_clocks(unsigned long long* host, int reset) {\n'
-     "  static unsigned long long zero[512 * 16];\n"
-     "  if (reset) return (int)cudaMemcpyToSymbol(gpe::g_clk, zero, sizeof zero);\n"
-     "  return (int)cudaMemcpyFromSymbol(host, gpe::g_clk, sizeof zero);\n}\n\n"
-     'extern "C" int gpe_k4_sums('),
-]
+# K1's clock marks and k4_variants.py's (K1's declare the counters)
 CLOCK_PATCH = K1_CLOCK_PATCH + K4_CLOCK_PATCH
 SOURCES = {"fused_residual": (K1, k1), "rowcat_eval": (K4, k4)}
 
@@ -166,31 +145,6 @@ def patches_of(variant: str) -> list:
     name, _, clocked = variant.partition("+")
     own = [] if name == "parent" else [x for p in VARIANTS[name][0] for x in PATCHES[p]]
     return own + (CLOCK_PATCH if clocked else [])
-
-
-def sass_report(lib_path: Path) -> dict:
-    """{kernel: {"regs", "local" (bytes a thread: spills), opcode: count}} of
-    a built library: registers and local memory from `cuobjdump -res-usage`,
-    HMMA (tensor-core) and FFMA instructions counted in `cuobjdump -sass`."""
-    tool = str(Path(_build._nvcc()).parent / "cuobjdump")
-    run = lambda flag: subprocess.run([tool, flag, str(lib_path)], capture_output=True,
-                                      text=True, check=True).stdout
-    out: dict = {}
-    for m in re.finditer(r"Function (\S+):\s*REG:(\d+)\s+STACK:\d+\s+SHARED:\d+\s+LOCAL:(\d+)",
-                         run("-res-usage")):
-        out[m.group(1)] = {"regs": int(m.group(2)), "local": int(m.group(3))}
-    fn = None
-    for line in run("-sass").splitlines():
-        head = re.match(r"\s*Function : (\S+)", line)
-        if head:
-            fn = head.group(1)
-            continue
-        op = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?((?:HMMA|FFMA)\S*)", line)
-        if fn and op:
-            key = op.group(1) if op.group(1).startswith("HMMA") else "FFMA"
-            counts = out.setdefault(fn, {})
-            counts[key] = counts.get(key, 0) + 1
-    return out
 
 
 def cases(dev):

@@ -77,18 +77,18 @@ PATCHES = {
         (K2, "          mma_store(Y, acc);", "          store_tile(Y, acc);"),
     ],
     "one_term": [
-        (CMN, "      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], ah[mt], bl[nt]);",
-         "      for (int nt = 0; nt < 4; ++nt) {}"),
-        (CMN, "      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], al[mt], bh[nt]);",
-         "      for (int nt = 0; nt < 4; ++nt) {}"),
+        (CMN, "      for (int mt = 0; mt < MT; ++mt) mma_tf32(acc[mt][nt], ah[mt], bl);",
+         "      for (int mt = 0; mt < MT; ++mt) {}"),
+        (CMN, "      for (int mt = 0; mt < MT; ++mt) mma_tf32(acc[mt][nt], al[mt], bh);",
+         "      for (int mt = 0; mt < MT; ++mt) {}"),
     ],
     "cvt": [
         (CMN, "  hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;",
          '  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(hi) : "f"(a));'),
     ],
     "guards": [
-        (CMN, "for (int nt = 0; nt < 4; ++nt) mma_tf32(",
-         "for (int nt = 0; nt < 4; ++nt) " + GUARD + "mma_tf32(", 3),
+        (CMN, "for (int mt = 0; mt < MT; ++mt) mma_tf32(",
+         "for (int mt = 0; mt < MT; ++mt) " + GUARD + "mma_tf32(", 3),
     ],
     "frag_epilogue": [
         (K2, "template <int D>\n__global__ void __launch_bounds__(NT, 1)",

@@ -287,6 +287,21 @@ def test_k4_eval_refuses_ragged_counts_and_counts_launches(cuda_device):
     assert (k4.collocation_sums.launches, k4.collocation_sums.bf16_launches) == (1, 1)
 
 
+@pytest.mark.parametrize("layers,n", [((2, 100, 100, 100, 1), 3000),
+                                      ((2, 128, 128, 128, 1), 4096)])
+def test_k4_split_tf32_keeps_f32_parity(cuda_device, layers, n):
+    """K4 f32 with weights scaled x4 against its plain version, rel 1e-4 per
+    sum: its hidden GEMMs run in 3xTF32 on 64 x 64 warp blocks, and
+    saturated activations make the sums most sensitive to the products'
+    error (PERF.md has what one TF32 product per f32 product,
+    k4_variants.py's tf32x1, reads here)."""
+    params, x, V, w, bval, blap = _inputs(layers, n, cuda_device, w_scale=4.0)
+    args = (params, x, V, w, 5.0, 0.05, bval, blap, "shifted_tanh", 3.0, 0.5,
+            "abs_power")
+    got, want = k4.collocation_sums(*args), k4.collocation_sums_plain(*args)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4)
+
+
 # Weights x4: there a reverse pass with one TF32 term per product misses
 # _grads_close's 2e-4; the 3xTF32 split keeps K2 within it (PERF.md has both
 # errors).

@@ -388,3 +388,29 @@ def test_bf16_variant_patches_apply_to_the_kernel_source(variant, tmp_path):
     assert all((o != s) == (f in touched) for f, o, s in zip(files, out, src))
     if variant.endswith("+clocks"):
         assert "gpe_k1_clocks" in out[0] and "gpe_k4_clocks" in out[1] and "CLK(" in out[2]
+
+
+@pytest.mark.parametrize("variant", ["as_is", "ffma", "tf32x1", "stride4",
+                                     "as_is+clocks", "parent+clocks"])
+def test_k4_variant_patches_apply_to_the_kernel_source(variant, tmp_path):
+    """experiments/k4_variants.py's patches of csrc/rowcat_eval.cu and
+    csrc/common.cuh still find their anchor text, each the expected number
+    of times, and change the source (the build and the timing need the
+    card). The clock marks ("parent+clocks" alone) must apply to a parent
+    checkout's sources too; their anchors are text the GEMM's redesign left
+    as it was."""
+    from gpe_tpu_torch.experiments import k4_variants as kv
+    from gpe_tpu_torch.kernels import _build
+
+    patches = kv.patches_of(variant)
+    kv.write_variant(variant, patches, tmp_path)
+    files = ("rowcat_eval.cu", "common.cuh")
+    src = [(_build.CSRC / f).read_text() for f in files]
+    out = [(tmp_path / variant / f).read_text() for f in files]
+    assert (out == src) == (not patches)
+    touched = {f for f, *_ in patches}
+    assert all((o != s) == (f in touched) for f, o, s in zip(files, out, src))
+    if variant.endswith("+clocks"):
+        assert "gpe_k4_clocks" in out[0] and "CLK(" in out[0] and "g_clk" in out[1]
+    if variant == "ffma":
+        assert "fmaf(av[e], bv[f], acc[e][f])" in out[0]
