@@ -10,9 +10,10 @@ port's three paths on the card:
    shifted_tanh MLP): K1 and K2 held against their plain PyTorch versions
    and timed (kernel, plain version, a nested-autograd PyTorch expression of
    the same function, CUDA events), K2's layout kernel (its padded weight
-   copies) against its plain version, then `train_plpinn` through the
-   registered config with a shortened schedule plus short relaxed and exact
-   fits, μ checked against the exact linear eigenvalue;
+   copies) against its plain version, then (c) the port's runner
+   (`experiments/run.py`) on the registered config with a shortened schedule,
+   its 120-step LM polish (timed) and the oracle score, plus short relaxed
+   and exact fits, μ checked against the exact linear eigenvalue;
 2. the packed-ensemble path, `harmonic_paper` (4,000 points, six runs of
    [1,64,64,64,1], modes 0–5): the run-mode K1 and K2 (K3) held against
    their plain versions and against six single-run launches, timed the same
@@ -25,7 +26,13 @@ port's three paths on the card:
    operands (bf16 tensor cores) against their bf16 plain versions and the
    f32 loss, timed at both shapes; the GEMM
    propagator against the FFT one on a 256² grid; then the benchmark itself,
-   in-process with fewer repetitions, its JSON on a line of its own.
+   in-process with fewer repetitions, its JSON on a line of its own;
+4. the main path's yardsticks: (a) the imaginary-time oracle on the card
+   at the runner's settings against the JAX artifact's mu_ref
+   (runs/gpe2d_ground_state/summary.json), timed; (b) the JAX-trained
+   artifact (runs/gpe2d_ground_state/bundle.pkl) at full width through K1
+   on its rebuilt bases; the float64 LM endgame from its polished params,
+   which launches no kernel, timed.
 
 A kernel row's "ms" is device time: CUDA events around replays of a CUDA
 graph of one wrapper call; "call_ms" is back-to-back calls, host work
@@ -290,41 +297,51 @@ def phase_k2(spec, batch, params):
 
 
 def phase_main_path(cfg, dev):
-    """The port's main path at full width and point count, shortened."""
+    """The port's main path at full width and point count, shortened: (c)
+    the runner (`experiments/run.py`) on gpe2d_ground_state with two γ rungs
+    of 300 epochs and 300 pretrain steps, the config's rebase and 120-step
+    LM polish (timed), and the oracle, into a temporary --out — its summary
+    has mu_ref and mu_abs_err, μ(0) is within 1e-2 of 1, μ rises with γ, K1
+    and K2 launched; then short relaxed and exact fits from its γ=0 params,
+    timed per step."""
+    import tempfile
+
     import torch
+    from gpe_tpu_torch.experiments import run
+    from gpe_tpu_torch.io import load_bundle
     from gpe_tpu_torch.kernels import fused_grad as k2
     from gpe_tpu_torch.kernels import fused_residual as k1
     from gpe_tpu_torch.models.mlp import params_from_numpy
     from gpe_tpu_torch.train.loop import fit
-    from gpe_tpu_torch.train.plpinn import ramp_optimizer, train_plpinn
+    from gpe_tpu_torch.train.plpinn import ramp_optimizer
     from gpe_tpu_torch.train.problem import (make_batch, make_fused_value_and_grad,
                                              make_loss_fn)
 
     spec = cfg.spec
-    gammas = (0.0, 5.0)
     k1.collocation_sums.launches = 0
     k2.collocation_grads.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = train_plpinn(spec, gamma_values=gammas, modes=cfg.modes, epochs=300,
-                       tol=cfg.tol, patience=cfg.patience,
-                       perturb_const=cfg.perturb_const, lr=cfg.lr, seed=cfg.seed,
-                       pretrain_epochs=300, check_every=100, rebase=cfg.rebase,
-                       lm_polish=cfg.lm_polish, lm_steps=3, lm_cg_iters=20,
-                       device=dev, verbose=True)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as out:
+        rc = run.main(["gpe2d_ground_state", "--train", "--epochs", "300", "--gammas",
+                       "0", "5", "--pretrain", "300", "--out", out])
+        exp = os.path.join(out, "gpe2d_ground_state")
+        with open(os.path.join(exp, "summary.json")) as f:
+            summary = json.load(f)
+        bundle = load_bundle(os.path.join(exp, "bundle.pkl"))
     launches = {"fused_residual": k1.collocation_sums.launches,
                 "fused_grad": k2.collocation_grads.launches}
-    mus = dict(res.mu_table[0])
-    log(f"train_plpinn wall {wall:.2f} s; μ per γ {mus}; epochs "
-        f"{res.epochs_history[0]}; LM-polished μ {res.polished[0]['mu']:.7f}; "
-        f"launches {launches}")
-    if not all(v > 0 for v in launches.values()):
+    mus = dict(bundle["mu_table"][0])
+    pol = summary["lm_polished"]["0"]
+    sec = summary["seconds"]
+    log(f"run.main rc {rc}, wall {summary['wall_s']} s: μ per γ {mus}; epochs "
+        f"{bundle['epochs_history'][0]}; LM ({pol['steps']} steps) "
+        f"{sec['lm']['0']:.2f} s, {sec['lm']['0'] / pol['steps']:.3f} s a step; "
+        f"oracle {sec['oracle']['0']:.2f} s; LM-polished μ {pol['mu']:.7f} vs "
+        f"μ_ref {pol['mu_ref']:.9f}: |Δ| {pol['mu_abs_err']:.3e}; launches {launches}")
+    if rc != 0 or not all(v > 0 for v in launches.values()):
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     if not all(math.isfinite(m) for m in mus.values()) \
-            or not math.isfinite(res.polished[0]["mu"]):
-        raise AssertionError(f"non-finite μ: {mus}")
+            or not all(math.isfinite(pol[k]) for k in ("mu", "mu_ref", "mu_abs_err")):
+        raise AssertionError(f"non-finite μ: {mus}, {pol}")
     if abs(mus[0.0] - 1.0) > 1e-2:
         raise AssertionError(f"μ(γ=0) = {mus[0.0]} is not within 1e-2 of 1.0")
     if not mus[5.0] > mus[0.0]:
@@ -332,8 +349,8 @@ def phase_main_path(cfg, dev):
 
     # per-step time of the default (relaxed) and the exact fused step
     batch = make_batch(spec, 0, device=dev)
-    params = params_from_numpy(res.params_by_mode[0][0.0], device=dev)
-    scale = cfg.perturb_const / res.constant_history[0]
+    params = params_from_numpy(bundle["params_by_mode"][0][0.0], device=dev)
+    scale = cfg.perturb_const / bundle["constant_history"][0]
     loss_fn = make_loss_fn(spec)
     steps = {}
     for name, relaxed in (("relaxed", None), ("exact", False)):
@@ -355,7 +372,7 @@ def phase_main_path(cfg, dev):
             raise AssertionError(f"exact/relaxed fit off: μ {r.mu_best}")
         if name == "exact" and after[0] - before[0] < 200:
             raise AssertionError("the exact step did not run K1 every step")
-    return launches, steps
+    return launches, steps, sec
 
 
 def runs_shape(dev):
@@ -810,6 +827,120 @@ def phase_bench(dev):
     return launches
 
 
+ARTIFACT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs",
+                        "gpe2d_ground_state")
+# μ of the JAX-trained artifact's γ=100 rung and of its LM-polished params
+# on the rebuilt bases, by the JAX package in f32 on a CPU (matmul precision
+# "highest"; tests/test_torch_io.py holds the port's plain path to the JAX
+# package's in the same rebuild); the artifact itself records 5.7628779 and
+# 5.7596231, computed on the TPU
+BUNDLE_MU = {"rung": 5.76025867, "polished": 5.75733757}
+BUNDLE_RTOL = 1e-5
+ORACLE_ATOL = 1e-8  # the float64 oracle against the artifact's mu_ref
+
+
+def phase_oracle(dev):
+    """(a) The imaginary-time oracle on the card at the runner's settings
+    (384², τ 2e-3, Richardson order 2, γ = 100), within ORACLE_ATOL of the
+    JAX artifact's mu_ref; timed."""
+    import torch
+    from gpe_tpu_torch.experiments.configs import EXPERIMENTS
+    from gpe_tpu_torch.experiments.run import oracle_mu
+
+    with open(os.path.join(ARTIFACT, "summary.json")) as f:
+        want = json.load(f)["lm_polished"]["0"]["mu_ref"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mu = oracle_mu(EXPERIMENTS["gpe2d_ground_state"].spec, 100.0, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"oracle on the card: μ_ref {mu!r} in {wall:.2f} s; artifact {want!r}, "
+        f"|Δ| {abs(mu - want):.3e}")
+    if not abs(mu - want) <= ORACLE_ATOL:
+        raise AssertionError(f"the oracle gives {mu}, the artifact {want}")
+    return wall
+
+
+def phase_bundle(cfg, dev):
+    """(b) The JAX-trained artifact at full width through K1: the γ=100
+    rung's params on the base folded with the 7 rungs before it, the
+    LM-polished params on the base folded with all 8 (train_plpinn rebases
+    after every rung), μ from K1's sums against BUNDLE_MU. Returns the
+    polished params, the 8-fold batch and the scale for the f64 check."""
+    import torch
+    from gpe_tpu_torch.io import load_bundle
+    from gpe_tpu_torch.kernels import fused_residual as k1
+    from gpe_tpu_torch.models.mlp import params_from_numpy
+    from gpe_tpu_torch.train.plpinn import _rebase
+    from gpe_tpu_torch.train.problem import make_batch, make_loss_fn
+
+    spec = cfg.spec
+    bundle = load_bundle(os.path.join(ARTIFACT, "bundle.pkl"))
+    rungs = sorted(bundle["params_by_mode"][0])
+    scale = cfg.perturb_const / bundle["constant_history"][0]
+    batch = make_batch(spec, 0, device=dev)
+    n = batch["x"].shape[0]
+    kw = dict(activation=spec.activation, p=spec.p, kinetic=spec.kinetic,
+              nonlinearity=spec.nonlinearity)
+    loss_fn = make_loss_fn(spec)
+    gen = torch.Generator().manual_seed(0)
+
+    def mus(params, gamma):
+        sums = k1.collocation_sums(params, batch["x"], batch["V"], batch["w"], gamma,
+                                   scale, batch["base_val"], batch["base_lap"], **kw)
+        with torch.no_grad():
+            plain = float(loss_fn(params, batch, gamma, scale)[1]["mu"])
+        return float(k1.sums_to_loss(sums, n, spec.norm_weight)[0]), plain
+
+    got = {}
+    for g in rungs:
+        params = params_from_numpy(bundle["params_by_mode"][0][g], device=dev)
+        if g == rungs[-1]:
+            got["rung"] = mus(params, g)
+        batch, _ = _rebase(spec, batch, params, scale, gen)
+    polished = params_from_numpy(bundle["polished"][0]["params"], device=dev)
+    got["polished"] = mus(polished, rungs[-1])
+    for k, (mu, plain) in got.items():
+        rel = abs(mu - BUNDLE_MU[k]) / BUNDLE_MU[k]
+        log(f"artifact {k} params on the rebuilt base, γ={rungs[-1]:g}: μ by K1 "
+            f"{mu:.8f}, plain {plain:.8f}, want {BUNDLE_MU[k]} (rel {rel:.2e}); "
+            f"the bundle records {bundle['mu_table'][0][-1][1] if k == 'rung' else bundle['polished'][0]['mu']}")
+        if not rel <= BUNDLE_RTOL:
+            raise AssertionError(f"artifact {k}: μ {mu} vs {BUNDLE_MU[k]}")
+    return polished, batch, scale, rungs[-1]
+
+
+def phase_polish_x64(spec, params, batch, scale, gamma):
+    """The float64 endgame (lm_polish_x64 + _eval_mu_x64) on the card at the
+    main shape, from the artifact's polished params: runs on the plain
+    autograd path, so neither fused kernel launches; timed."""
+    import torch
+    from gpe_tpu_torch.kernels import fused_grad as k2
+    from gpe_tpu_torch.kernels import fused_residual as k1
+    from gpe_tpu_torch.train.gauss_newton import lm_polish_x64, make_gpe_residual_fn
+    from gpe_tpu_torch.train.plpinn import _eval_mu_x64
+    from gpe_tpu_torch.train.problem import make_loss_fn
+
+    counters = [(k1.collocation_sums, "launches"), (k1.collocation_sums, "bf16_launches"),
+                (k2.collocation_grads, "launches")]
+    before = [getattr(fn, a) for fn, a in counters]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = lm_polish_x64(make_gpe_residual_fn(spec), params, batch, gamma, scale,
+                        steps=2, cg_iters=20)
+    mu = _eval_mu_x64(make_loss_fn(spec), res.params, batch, gamma, scale)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = [getattr(fn, a) - b for (fn, a), b in zip(counters, before)]
+    log(f"f64 LM endgame (2 steps, 20 CG iterations) on the card: {wall:.2f} s, "
+        f"loss {res.loss_history.tolist()}, μ (f64) {mu:.9f}; K1/K1-bf16/K2 "
+        f"launches {launched}")
+    if any(launched) or not math.isfinite(mu) or res.params[0][0].dtype != torch.float64:
+        raise AssertionError(f"the f64 polish went through a kernel or failed: "
+                             f"{launched}, μ {mu}")
+    return wall
+
+
 def main() -> int:
     try:
         import torch
@@ -835,7 +966,7 @@ def main() -> int:
     cfg, spec, batch, params = main_shape(dev)
     kernels = [phase_k1(spec, batch, params), phase_k2(spec, batch, params)]
     del batch, params
-    launches, steps = phase_main_path(cfg, dev)
+    launches, steps, run_s = phase_main_path(cfg, dev)
     rcfg, rspec, rbatch, rparams, gammas, scales = runs_shape(dev)
     kernels += [phase_k3_sums(rspec, rbatch, rparams, gammas, scales),
                 phase_k3_grads(rspec, rbatch, rparams, gammas, scales)]
@@ -857,9 +988,14 @@ def main() -> int:
     bench_launches = phase_bench(dev)
     launches.update({k: bench_launches[k] for k in
                      ("rowcat_eval", "fused_residual_bf16", "rowcat_eval_bf16")})
+    oracle_s = phase_oracle(dev)
+    polished, pbatch, pscale, pgamma = phase_bundle(cfg, dev)
+    x64_s = phase_polish_x64(cfg.spec, polished, pbatch, pscale, pgamma)
+    del polished, pbatch
     for k in kernels:
         k["launches"] = launches[k["name"]]
-    log(json.dumps({"steps_ms": steps}))
+    log(json.dumps({"steps_ms": steps, "oracle_s": oracle_s, "polish_x64_s": x64_s,
+                    "run_main_s": run_s}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

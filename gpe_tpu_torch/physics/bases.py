@@ -2,11 +2,13 @@
 
 Port of `gpe_tpu/physics/bases.py` for the Hermite (harmonic-trap) family:
 φₙ(x) = (2ⁿ n! √π)^(−1/2) Hₙ(x) e^(−x²/2) by the stable recurrence, with
-φₙ″ = (x² − (2n+1))·φₙ from the Schrödinger ODE. The box and Airy bases
-are not ported yet.
+φₙ″ = (x² − (2n+1))·φₙ from the Schrödinger ODE, and the Airy zeros αₙ
+(`airy_zero`, scipy on the host) that `physics/exact.py` needs. The box and
+Airy bases are not ported yet.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -85,3 +87,10 @@ def hermite_product_nd(modes, x: torch.Tensor) -> ValGradLap:
                        dim=-1)
     lap = sum(fs[i].lap * prod_except(i) for i in range(d))
     return ValGradLap(val, grad, lap)
+
+
+@functools.lru_cache(maxsize=None)
+def airy_zero(n: int) -> float:
+    """αₙ = the (n+1)-th zero of Ai (negative), scipy-computed on the host."""
+    from scipy.special import ai_zeros
+    return float(ai_zeros(max(n + 1, 16))[0][n])

@@ -1,5 +1,6 @@
 """Matrix-free Levenberg–Marquardt for PINN residuals, port of
-`gpe_tpu/train/gauss_newton.py` (`make_gpe_residual_fn`, `make_lm_solver`).
+`gpe_tpu/train/gauss_newton.py` (`make_gpe_residual_fn`, `make_lm_solver`,
+`lm_polish_x64`).
 
     (JᵀJ + λ·curv·I) δ = Jᵀr,   θ ← θ − δ
 
@@ -126,3 +127,28 @@ def make_lm_solver(residual_fn: Callable, params_template, steps: int = 100,
                         float(loss_hist[-1]), loss_hist, np.asarray(lams))
 
     return solver
+
+
+def to_f64(tree):
+    """Every floating tensor of a params tuple or batch dict as float64 on
+    its device (integer tensors unchanged)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(torch.float64) if tree.is_floating_point() else tree
+    if isinstance(tree, dict):
+        return {k: to_f64(v) for k, v in tree.items()}
+    return type(tree)(to_f64(v) for v in tree)
+
+
+def lm_polish_x64(residual_fn: Callable, params, batch, gamma, scale,
+                  steps: int = 20, cg_iters: int = 60) -> LMResult:
+    """float64 Levenberg–Marquardt endgame, port of
+    `gpe_tpu.train.gauss_newton.lm_polish_x64`.
+
+    Starts from an (f32, polished) state and squeezes out the f32
+    arithmetic floor: forward-Laplacian, residual and CG all run in float64
+    on the device the batch lies on (the JAX package moves this to its host
+    CPU). The plain autograd path only: the fused kernels are f32.
+    Returns LMResult with float64 params."""
+    p64 = to_f64(params)
+    lm = make_lm_solver(residual_fn, p64, steps=steps, cg_iters=cg_iters)
+    return lm(p64, to_f64(batch), float(gamma), float(scale))

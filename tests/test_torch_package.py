@@ -54,7 +54,7 @@ def test_every_module_imports_with_jax_blocked():
     assert out.stdout.startswith("ok")
 
 
-def test_entry_points_without_device_raise_when_there_is_no_card():
+def test_entry_points_without_device_raise_when_there_is_no_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
     from gpe_tpu_torch.device import resolve_device
@@ -75,6 +75,24 @@ def test_entry_points_without_device_raise_when_there_is_no_card():
         params_from_numpy([(np.zeros((1, 8)), np.zeros(8))])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_plpinn(spec, [0.0], epochs=2, pretrain_epochs=2)
+
+    from gpe_tpu_torch.experiments import run
+    from gpe_tpu_torch.validate import fdm, rotating
+    from gpe_tpu_torch.validate.imaginary_time import imaginary_time_gpe
+
+    x = np.linspace(-4.0, 4.0, 16)
+    V2 = 0.5 * (x[:, None] ** 2 + x[None, :] ** 2)
+    for call in (lambda: imaginary_time_gpe(x * x, 0.5, 1.0, steps=2),
+                 lambda: fdm.linear_eigensolve_1d(x * x, 0.5, k=2),
+                 lambda: fdm.solve_gpe_scf_1d(x * x, 0.5, 1.0, max_iter=1),
+                 lambda: fdm.solve_gpe_scf_2d(V2, 0.5, 1.0, max_iter=1),
+                 lambda: fdm.solve_gpe_excited_1d(x * x, 0.5, 0.0),
+                 lambda: rotating.rotating_imaginary_time(V2, x, 1.0, 0.5, steps=2),
+                 lambda: rotating.regrid_psi(V2.astype(complex), x, x),
+                 lambda: run.main(["linear_1d_sanity", "--epochs", "1",
+                                   "--out", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
     assert resolve_device("cpu").type == "cpu"
 
 

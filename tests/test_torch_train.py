@@ -236,14 +236,27 @@ def test_train_plpinn_2d_ramp_with_rebase():
 
 
 def test_configs_match_the_jax_registry():
+    """Every registered config equals the JAX config of its name in every
+    field the two dataclasses share (the spec's dtype aside), and every
+    other JAX config is listed in WAITING with what it waits for."""
+    from dataclasses import fields
+
     from gpe_tpu.experiments.configs import EXPERIMENTS as JEXP
+    from gpe_tpu_torch.experiments.configs import WAITING
+
+    assert set(EXPERIMENTS) | set(WAITING) == set(JEXP)
+    assert not set(EXPERIMENTS) & set(WAITING)
+    assert {"harmonic_quick", "harmonic_negative_gamma", "harmonic_p4", "harmonic_p8",
+            "harmonic_p16", "gpe1d_tf", "gpe2d_lattice", "harmonic_paper",
+            "linear_1d_sanity", "gpe2d_ground_state"} <= set(EXPERIMENTS)
+    cfg_fields = [f.name for f in fields(next(iter(EXPERIMENTS.values())))]
+    assert cfg_fields == [f.name for f in fields(next(iter(JEXP.values())))]
+    spec_fields = [f.name for f in fields(tprob.GPESpec) if f.name != "dtype"]
     for name, cfg in EXPERIMENTS.items():
         jcfg = JEXP[name]
-        for f in ("gamma_values", "modes", "epochs", "tol", "patience",
-                  "perturb_const", "lr", "pretrain_epochs", "seed", "rebase",
-                  "lm_polish"):
-            assert getattr(cfg, f) == getattr(jcfg, f), (name, f)
-        for f in ("lb", "ub", "n_points", "dim", "layers", "activation",
-                  "potential", "potential_kwargs", "basis", "p", "kinetic",
-                  "nonlinearity", "bc_weight", "norm_weight", "use_perturbation"):
+        assert jcfg.algorithm == "plpinn" and not jcfg.use_mesh
+        for f in cfg_fields:
+            if f != "spec":
+                assert getattr(cfg, f) == getattr(jcfg, f), (name, f)
+        for f in spec_fields:
             assert getattr(cfg.spec, f) == getattr(jcfg.spec, f), (name, f)
