@@ -34,6 +34,20 @@ port's three paths on the card:
    on its rebuilt bases; the float64 LM endgame from its polished params,
    which launches no kernel, timed.
 
+5. the 1D families (4,000 points, [1,64,64,64,1] shifted_tanh, the
+   paper's weights): (a) the runner's cross-potential branch on
+   `mode0_all_potentials` (γ ∈ {0, 1, 2} of 11, 300 of 2001 epochs, 300
+   pretrain steps): the harmonic, gravity-well and Gaussian-trap ramps on
+   K1/K2, the hard-BC box on the plain path, μ(0) of the first three
+   against their exact eigenvalues, and a gravity-well fit timed per step
+   on K2 and on the plain autograd path; (b) `p3_gravity_well`'s six modes
+   through `train_plpinn_modes_packed` on K3, μ(0) against −αₙ; (c) the
+   JAX-trained `runs/mode0_all_potentials` bundles on rebuilt batches,
+   through K1 (the box through the plain path), against the JAX package's
+   f32 μ; (d) the runner's `fit` branch on `gpe2d_circle` (10,000 disk
+   points, [2,100,100,100,1] tanh, 200 of 3000 epochs), which launches no
+   kernel.
+
 A kernel row's "ms" is device time: CUDA events around replays of a CUDA
 graph of one wrapper call; "call_ms" is back-to-back calls, host work
 included. Each path's launch counters are set to 0 just before it and read
@@ -306,14 +320,11 @@ def phase_main_path(cfg, dev):
     timed per step."""
     import tempfile
 
-    import torch
     from gpe_tpu_torch.experiments import run
     from gpe_tpu_torch.io import load_bundle
     from gpe_tpu_torch.kernels import fused_grad as k2
     from gpe_tpu_torch.kernels import fused_residual as k1
     from gpe_tpu_torch.models.mlp import params_from_numpy
-    from gpe_tpu_torch.train.loop import fit
-    from gpe_tpu_torch.train.plpinn import ramp_optimizer
     from gpe_tpu_torch.train.problem import (make_batch, make_fused_value_and_grad,
                                              make_loss_fn)
 
@@ -356,15 +367,7 @@ def phase_main_path(cfg, dev):
     for name, relaxed in (("relaxed", None), ("exact", False)):
         vag = make_fused_value_and_grad(spec, device=dev, relaxed=relaxed)
         before = (k1.collocation_sums.launches, k2.collocation_grads.launches)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        r = fit(loss_fn, ramp_optimizer(cfg.lr), params, batch, 0.0, scale,
-                epochs=200, tol=-1.0, patience=10 ** 9, check_every=100,
-                value_and_grad_fn=vag)
-        end.record()
-        end.synchronize()
-        steps[name] = start.elapsed_time(end) / 200
+        steps[name], r = _fit_step_ms(loss_fn, params, batch, 0.0, scale, vag, cfg.lr)
         after = (k1.collocation_sums.launches, k2.collocation_grads.launches)
         log(f"fit ({name}): {steps[name]:.4f} ms/step, μ {r.mu_best:.7f}, "
             f"launches K1 {after[0] - before[0]} K2 {after[1] - before[1]}")
@@ -836,6 +839,15 @@ ARTIFACT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs",
 # 5.7596231, computed on the TPU
 BUNDLE_MU = {"rung": 5.76025867, "polished": 5.75733757}
 BUNDLE_RTOL = 1e-5
+CROSS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs",
+                     "mode0_all_potentials")
+# μ of the JAX-trained cross-potential bundles' γ=10 params on rebuilt
+# batches, by the JAX package in f32 on a CPU (matmul precision "highest");
+# tests/test_torch_families_train.py computes them with JAX and holds these
+# digits to them. The runs' own summary records 4.0242014, 24.113070,
+# 5.1596880 and 1.4795735, computed on the TPU.
+CROSS_BUNDLE_MU = {"harmonic": 4.024077415466309, "box": 24.11325454711914,
+                   "gravity_well": 5.161096572875977, "gaussian": 1.4791821241378784}
 ORACLE_ATOL = 1e-8  # the float64 oracle against the artifact's mu_ref
 
 
@@ -941,6 +953,229 @@ def phase_polish_x64(spec, params, batch, scale, gamma):
     return wall
 
 
+CROSS_EXACT = {"harmonic": 1.0, "box": math.pi ** 2, "gravity_well": 2.338107712}
+CROSS_ATOL = 1e-2    # |μ(γ=0) − exact|: the pretrained base is the exact state
+
+
+def _fit_step_ms(loss_fn, params, batch, gamma, scale, vag, lr, steps=200):
+    """ms per fit() step over `steps` steps (CUDA events around the call)."""
+    import torch
+    from gpe_tpu_torch.train.loop import fit
+    from gpe_tpu_torch.train.plpinn import ramp_optimizer
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = fit(loss_fn, ramp_optimizer(lr), params, batch, gamma, scale, epochs=steps,
+              tol=-1.0, patience=10 ** 9, check_every=100, value_and_grad_fn=vag)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / steps, res
+
+
+def phase_cross_potential(dev):
+    """(a) The runner's cross-potential branch on `mode0_all_potentials`, γ ∈
+    {0, 1, 2}, 300 epochs, 300 pretrain steps, into a temporary --out: per
+    family μ(0) within CROSS_ATOL of its exact eigenvalue (the Gaussian
+    trap: finite, its distance to the FDM eigenvalue printed), μ rising
+    with γ, K1 and K2 launched for every family but the hard-BC box, which
+    launches neither. Then 200 steps of the gravity well's γ=1 fit from its
+    trained params, timed on K2 (the default relaxed step) and on the plain
+    autograd path (what GPE_TPU_TORCH_NO_FUSED=1 selects)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from gpe_tpu_torch.experiments import run
+    from gpe_tpu_torch.experiments.configs import EXPERIMENTS
+    from gpe_tpu_torch.io import load_bundle
+    from gpe_tpu_torch.kernels import fused_grad as k2
+    from gpe_tpu_torch.kernels import fused_residual as k1
+    from gpe_tpu_torch.models.mlp import params_from_numpy
+    from gpe_tpu_torch.physics import potentials
+    from gpe_tpu_torch.train.problem import (make_batch, make_fused_value_and_grad,
+                                             make_loss_fn)
+    from gpe_tpu_torch.validate.fdm import linear_eigensolve_1d
+
+    cfg = EXPERIMENTS["mode0_all_potentials"]
+    fams = run.cross_potential_families(cfg.spec)
+    k1.collocation_sums.launches = 0
+    k2.collocation_grads.launches = 0
+    with tempfile.TemporaryDirectory() as out:
+        rc = run.main(["mode0_all_potentials", "--train", "--epochs", "300", "--gammas",
+                       "0", "1", "2", "--pretrain", "300", "--out", out])
+        exp = os.path.join(out, "mode0_all_potentials")
+        with open(os.path.join(exp, "summary.json")) as f:
+            records = {r["potential"]: r for r in json.load(f)}
+        bundles = {k: load_bundle(os.path.join(exp, f"{k}_bundle.pkl")) for k in fams}
+    launches = {"fused_residual": k1.collocation_sums.launches,
+                "fused_grad": k2.collocation_grads.launches}
+    log(f"cross-potential run.main rc {rc}; launches {launches}")
+    for label, rec in records.items():
+        mus = dict(bundles[label]["mu_table"][0])
+        log(f"  {label}: μ per γ {mus}; epochs {bundles[label]['epochs_history'][0]}; "
+            f"seconds {rec['seconds']}; launches {rec['launches']}")
+        if not all(math.isfinite(v) for v in mus.values()):
+            raise AssertionError(f"{label}: non-finite μ {mus}")
+        if not mus[0.0] < mus[1.0] < mus[2.0]:
+            raise AssertionError(f"{label}: μ does not rise with γ: {mus}")
+        counts = rec["launches"]
+        if not (all(v > 0 for v in counts.values()) if label != "box"
+                else not any(counts.values())):
+            raise AssertionError(f"{label}: launches {counts}")
+        if label in CROSS_EXACT:
+            err = abs(mus[0.0] - CROSS_EXACT[label])
+            log(f"  {label}: |μ(0) − {CROSS_EXACT[label]:.9f}| = {err:.3e}")
+            if not err < CROSS_ATOL:
+                raise AssertionError(f"{label}: μ(0) {mus[0.0]} off the exact value")
+    spec = fams["gaussian"]
+    x = np.linspace(spec.lb, spec.ub, 2003)[1:-1]
+    V = potentials.get_potential(spec.potential)(torch.as_tensor(x))
+    mu_fdm = float(linear_eigensolve_1d(V, x[1] - x[0], k=1, device=dev)[0][0])
+    mu0 = dict(bundles["gaussian"]["mu_table"][0])[0.0]
+    log(f"  gaussian: μ(0) {mu0:.7f}, FDM {mu_fdm:.7f}, |Δ| {abs(mu0 - mu_fdm):.3e} "
+        "(no bound: the Hermite base is not this trap's eigenfunction)")
+    if rc != 0 or set(records) != set(fams):
+        raise AssertionError(f"cross-potential branch: rc {rc}, records {list(records)}")
+
+    gspec = fams["gravity_well"]
+    gb = bundles["gravity_well"]
+    batch = make_batch(gspec, 0, device=dev)
+    params = params_from_numpy(gb["params_by_mode"][0][1.0], device=dev)
+    scale = cfg.perturb_const / gb["constant_history"][0]
+    loss_fn = make_loss_fn(gspec)
+    steps = {}
+    for name, vag in (("gravity_well_k2", make_fused_value_and_grad(gspec, device=dev)),
+                      ("gravity_well_autograd", None)):
+        before = k2.collocation_grads.launches
+        steps[name], r = _fit_step_ms(loss_fn, params, batch, 1.0, scale, vag, cfg.lr)
+        n2 = k2.collocation_grads.launches - before
+        log(f"gravity-well fit γ=1 ({name}): {steps[name]:.4f} ms/step, μ "
+            f"{r.mu_best:.7f}, K2 launches {n2}")
+        if (vag is None) != (n2 == 0) or not math.isfinite(r.mu_best):
+            raise AssertionError(f"gravity-well fit ({name}) went the wrong way: {n2}")
+    return launches, steps
+
+
+def phase_gravity_packed(dev):
+    """(b) `p3_gravity_well`'s six modes in one run-stacked ensemble (K3),
+    γ ∈ {0, 0.5, 1}, 300 epochs, 300 pretrain steps, rebase: K3 launched,
+    |μₙ(0) + αₙ| < CROSS_ATOL for n = 0..5, μ rising with γ."""
+    import torch
+    from gpe_tpu_torch.experiments.paper_tables import family
+    from gpe_tpu_torch.kernels import fused_grad as k2
+    from gpe_tpu_torch.kernels import fused_residual as k1
+    from gpe_tpu_torch.physics.bases import airy_zero
+    from gpe_tpu_torch.train.packed import train_plpinn_modes_packed
+
+    fam = family("p3_gravity_well")
+    gammas = (0.0, 0.5, 1.0)
+    k1.collocation_sums_runs.launches = 0
+    k2.collocation_grads_runs.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = train_plpinn_modes_packed(fam["spec"], gamma_values=gammas, modes=fam["modes"],
+                                    epochs=300, pretrain_epochs=300, check_every=100,
+                                    rebase=True, device=dev, verbose=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fused_residual_runs": k1.collocation_sums_runs.launches,
+                "fused_grad_runs": k2.collocation_grads_runs.launches}
+    log(f"p3_gravity_well packed ({len(fam['modes'])} modes): wall {wall:.2f} s, "
+        f"launches {launches}")
+    if not all(v > 0 for v in launches.values()):
+        raise AssertionError(f"K3 never launched on the gravity-well ensemble: {launches}")
+    for m in fam["modes"]:
+        mus = dict(res.mu_table[m])
+        err = abs(mus[0.0] + airy_zero(m))
+        log(f"  mode {m}: μ per γ {mus}, |μ(0) + α{m}| {err:.3e}")
+        if not err < CROSS_ATOL or not mus[0.0] < mus[0.5] < mus[1.0]:
+            raise AssertionError(f"mode {m}: μ {mus} against −α = {-airy_zero(m)}")
+    return launches, wall
+
+
+def phase_cross_bundles(dev):
+    """(c) The JAX-trained cross-potential bundles' γ=10 params on batches
+    rebuilt on the card: μ within BUNDLE_RTOL of CROSS_BUNDLE_MU, through
+    K1 (each sum within K1_TOL of K1's plain version) for the three
+    non-hard-BC families, through the plain path for the box."""
+    import torch
+    from gpe_tpu_torch.experiments import run
+    from gpe_tpu_torch.experiments.configs import EXPERIMENTS
+    from gpe_tpu_torch.io import load_bundle
+    from gpe_tpu_torch.kernels import fused_residual as k1
+    from gpe_tpu_torch.models.mlp import params_from_numpy
+    from gpe_tpu_torch.train.problem import make_batch, make_loss_fn
+
+    cfg = EXPERIMENTS["mode0_all_potentials"]
+    for label, spec in run.cross_potential_families(cfg.spec).items():
+        bundle = load_bundle(os.path.join(CROSS, f"{label}_bundle.pkl"))
+        g = sorted(bundle["params_by_mode"][0])[-1]
+        scale = cfg.perturb_const / bundle["constant_history"][0]
+        params = params_from_numpy(bundle["params_by_mode"][0][g], device=dev)
+        batch = make_batch(spec, 0, device=dev)
+        before = k1.collocation_sums.launches
+        if spec.hard_bc:
+            with torch.no_grad():
+                mu = float(make_loss_fn(spec)(params, batch, g, scale)[1]["mu"])
+            how, rel = "plain path", 0.0
+        else:
+            args, kw = _sums_args(spec, batch, g, scale)
+            sums = k1.collocation_sums(params, *args, **kw)
+            rel = _rel(sums, k1.collocation_sums_plain(params, *args, **kw))
+            mu = float(k1.sums_to_loss(sums, batch["x"].shape[0], spec.norm_weight)[0])
+            how = "K1"
+        launched = k1.collocation_sums.launches - before
+        mu_rel = abs(mu - CROSS_BUNDLE_MU[label]) / CROSS_BUNDLE_MU[label]
+        log(f"cross bundle {label} γ={g:g}: μ by {how} {mu:.8f}, want "
+            f"{CROSS_BUNDLE_MU[label]} (rel {mu_rel:.2e}); K1 vs plain max rel "
+            f"{rel:.2e}; K1 launches {launched}; the bundle records "
+            f"{bundle['mu_table'][0][-1][1]}")
+        if not mu_rel <= BUNDLE_RTOL or rel > K1_TOL \
+                or launched != (0 if spec.hard_bc else 1):
+            raise AssertionError(f"cross bundle {label}: μ {mu}, K1 rel {rel}, "
+                                 f"launches {launched}")
+
+
+def phase_fit_circle(dev):
+    """(d) The runner's `fit` branch on `gpe2d_circle` (10,000 disk points,
+    [2,100,100,100,1] tanh, γ = 10), 200 of 3000 epochs, into a temporary
+    --out: the best loss finite and below the initial params' loss, no K1
+    or K2 launch (the disk is not fused, as in the JAX package)."""
+    import tempfile
+
+    import torch
+    from gpe_tpu_torch.experiments import run
+    from gpe_tpu_torch.experiments.configs import EXPERIMENTS
+    from gpe_tpu_torch.kernels import fused_grad as k2
+    from gpe_tpu_torch.kernels import fused_residual as k1
+    from gpe_tpu_torch.train.problem import init_params, make_batch, make_loss_fn
+
+    cfg = EXPERIMENTS["gpe2d_circle"]
+    spec = cfg.spec
+    with torch.no_grad():
+        loss0 = float(make_loss_fn(spec)(
+            init_params(spec, torch.Generator().manual_seed(cfg.seed), device=dev),
+            make_batch(spec, 0, device=dev), cfg.gamma_values[0], 1.0)[0])
+    k1.collocation_sums.launches = 0
+    k2.collocation_grads.launches = 0
+    with tempfile.TemporaryDirectory() as out:
+        rc = run.main(["gpe2d_circle", "--train", "--epochs", "200", "--out", out])
+        with open(os.path.join(out, "gpe2d_circle", "summary.json")) as f:
+            rec = json.load(f)
+    launched = k1.collocation_sums.launches + k2.collocation_grads.launches
+    sec = rec["seconds"]["fit"]
+    log(f"fit branch gpe2d_circle: rc {rc}, γ {rec['gamma']}, μ {rec['mu']:.7f}, best "
+        f"loss {rec['loss']:.6e} from {loss0:.6e}, {rec['epochs']} epochs in "
+        f"{sec:.2f} s ({1e3 * sec / rec['epochs']:.3f} ms/step); K1/K2 launches "
+        f"{launched}")
+    if rc != 0 or launched or any(rec["launches"].values()) \
+            or not math.isfinite(rec["loss"]) or not rec["loss"] < loss0 \
+            or rec["epochs"] != 200:
+        raise AssertionError(f"the fit branch failed: {rec}, launches {launched}")
+    return sec
+
+
 def main() -> int:
     try:
         import torch
@@ -992,10 +1227,28 @@ def main() -> int:
     polished, pbatch, pscale, pgamma = phase_bundle(cfg, dev)
     x64_s = phase_polish_x64(cfg.spec, polished, pbatch, pscale, pgamma)
     del polished, pbatch
+    phases = {}
+    t0 = time.perf_counter()
+    cross_launches, cross_steps = phase_cross_potential(dev)
+    phases["cross_potential"] = time.perf_counter() - t0
+    steps.update(cross_steps)
+    t0 = time.perf_counter()
+    gw_launches, _ = phase_gravity_packed(dev)
+    phases["gravity_well_packed"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_cross_bundles(dev)
+    phases["cross_bundles"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_fit_circle(dev)
+    phases["fit_circle"] = time.perf_counter() - t0
+    by_path = {"cross_potential": cross_launches, "gravity_well_packed": gw_launches}
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        for path, counts in by_path.items():
+            if k["name"] in counts:
+                k.setdefault("launches_by_path", {})[path] = counts[k["name"]]
     log(json.dumps({"steps_ms": steps, "oracle_s": oracle_s, "polish_x64_s": x64_s,
-                    "run_main_s": run_s}))
+                    "run_main_s": run_s, "families_phase_s": phases}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

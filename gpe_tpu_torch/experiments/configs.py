@@ -1,9 +1,10 @@
 """Experiment registry, port of `gpe_tpu/experiments/configs.py`.
 
-`EXPERIMENTS` holds every `plpinn` configuration of the JAX registry whose
-parts the port has (bases, potentials, ansatz, trainer); `WAITING` names
-each other JAX configuration and what it waits for, and
-`experiments/run.py` raises NotImplementedError with that text.
+`EXPERIMENTS` holds every configuration of the JAX registry whose parts the
+port has (bases, potentials, ansatz, loss terms, trainer, runner branch):
+the `plpinn`, `fit` and `cross_potential` ones. `WAITING` names each other
+JAX configuration and what it waits for, and `experiments/run.py` raises
+NotImplementedError with that text.
 """
 from __future__ import annotations
 
@@ -64,6 +65,17 @@ _register(ExperimentConfig(
     spec=_PAPER_1D, gamma_values=_gammas(21), modes=(0,), epochs=2001))
 
 _register(ExperimentConfig(
+    name="box_paper",                            # box_pinn_simulation.py
+    spec=replace(_PAPER_1D, lb=0.0, ub=1.0, potential="box", basis="box",
+                 hard_bc=True),
+    gamma_values=_gammas(201), modes=(0, 1)))
+
+_register(ExperimentConfig(
+    name="gravity_well_paper",                   # gravity_well_pinn_simulation.py
+    spec=replace(_PAPER_1D, lb=0.0, ub=35.0, potential="linear", basis="airy"),
+    gamma_values=_gammas(401, 0.25), modes=(0, 1)))
+
+_register(ExperimentConfig(
     name="gaussian_paper",
     spec=replace(_PAPER_1D, potential="gaussian"),
     gamma_values=_gammas(201), modes=(0,)))
@@ -103,6 +115,43 @@ _register(ExperimentConfig(
     epochs=8000, rebase=True, lm_polish=True))
 
 _register(ExperimentConfig(
+    name="gpe2d_circle",                         # gross_pitaevskii_2D.py:277-295
+    # circular training domain r=π/2 around (π/2,π/2), N_f=10000, N_u=500
+    spec=GPESpec(dim=2, lb=0.0, ub=3.141592653589793, n_points=100,
+                 geometry="disk", n_boundary=500,
+                 layers=(2, 100, 100, 100, 1), activation="tanh",
+                 potential="gaussian",
+                 potential_kwargs=(("V0", 1.0),
+                                   ("center", (1.5707963267948966, 1.5707963267948966)),
+                                   ("sigma", 0.5)),
+                 kinetic=0.5, nonlinearity="abs_power", use_perturbation=False,
+                 bc_weight=10.0, norm_weight=20.0),
+    algorithm="fit", gamma_values=(10.0,), epochs=3000))
+
+# --- loss-strategy experiments (the `fit` branch) ----------------------------
+
+_register(ExperimentConfig(
+    name="harmonic_self_adaptive",               # src/..._Self_Adaptive.py
+    spec=replace(_PAPER_1D, n_points=2000, weighting="self_adaptive",
+                 use_perturbation=False, nonlinearity="abs_power"),
+    algorithm="fit", gamma_values=(0.0, 10.0), epochs=4000))
+
+_register(ExperimentConfig(
+    name="gpe2d_anti_trivial",                   # gross_pitaevskii_2D.py:197-211
+    spec=GPESpec(dim=2, lb=-6.0, ub=6.0, n_points=100,
+                 layers=(2, 100, 100, 100, 1), activation="tanh",
+                 potential="harmonic", potential_kwargs=(("a", 0.5),),
+                 kinetic=0.5, nonlinearity="abs_power", use_perturbation=False,
+                 anti_trivial=True, anti_trivial_weight=0.1),
+    algorithm="fit", gamma_values=(10.0,), epochs=12000))
+
+_register(ExperimentConfig(
+    name="riesz_mode0",                          # 1D_GPE_Riesz_Method notebook
+    spec=replace(_PAPER_1D, n_points=2000, objective="riesz",
+                 nonlinearity="abs_power"),
+    algorithm="fit", gamma_values=(0.0, 1.0, 10.0, 100.0), epochs=4000))
+
+_register(ExperimentConfig(
     name="gpe2d_lattice",                        # config #4: optical lattice
     spec=GPESpec(dim=2, lb=-8.0, ub=8.0, n_points=128,
                  layers=(2, 128, 128, 128, 1), activation="shifted_tanh",
@@ -111,49 +160,36 @@ _register(ExperimentConfig(
                  basis="hermite", kinetic=0.5, nonlinearity="abs_power"),
     gamma_values=(0.0, 5.0, 10.0, 20.0), epochs=8000, rebase=True))
 
-_BOX = "the box basis and the hard-BC ansatz (gpe_tpu.physics.bases.box_basis, " \
-       "gpe_tpu.models.ansatz.hard_bc_ansatz)"
-_AIRY = "the Airy basis (gpe_tpu.physics.bases.airy_basis)"
+_register(ExperimentConfig(
+    name="mode0_all_potentials",                 # F6: mode_0_loss_for_all_potentials.py
+    spec=_PAPER_1D,                              # per-family specs: run.py
+    algorithm="cross_potential", gamma_values=_gammas(11, 1.0),
+    modes=(0,), epochs=2001))
+
+_MULTIRUN = "the multi-run protocol (gpe_tpu.train.compare.train_multiple_runs)"
+_BETA = "the β-sweep trainer (gpe_tpu.train.beta_sweep.train_beta_sweep)"
+_DEFLATION = "the deflation trainer (gpe_tpu.train.deflation.train_deflation)"
+_HELMHOLTZ = "the Helmholtz trainer (gpe_tpu.helmholtz.problem.train_helmholtz)"
 
 # the JAX registry's other configurations and what each waits for
 WAITING = {
-    "box_paper": _BOX,
-    "gravity_well_paper": _AIRY,
     "deeponet_harmonic": "the DeepONet trainer (gpe_tpu.deeponet.model.train_deeponet)",
     "plpinn_sharded_dp": "collocation-sharded training (gpe_tpu.parallel.make_mesh, "
                          "train_plpinn(mesh=))",
     "two_stage_beta_gamma": "the two-stage trainer (gpe_tpu.train.two_stage.train_two_stage)",
     "compare_harmonic_mode0": "the method comparison (gpe_tpu.train.compare.compare_methods)",
-    "multirun_harmonic_mode0": "the multi-run protocol "
-                               "(gpe_tpu.train.compare.train_multiple_runs)",
-    "multirun_box_mode0": "the multi-run protocol "
-                          "(gpe_tpu.train.compare.train_multiple_runs) and " + _BOX,
-    "gpe2d_circle": "the disk geometry (gpe_tpu.ops.geometry) and run.py's fit branch",
-    "vary_beta_harmonic": "the β-sweep trainer (gpe_tpu.train.beta_sweep.train_beta_sweep)"
-                          " and " + _BOX,
-    "vary_beta_gravity_well": "the β-sweep trainer "
-                              "(gpe_tpu.train.beta_sweep.train_beta_sweep) and " + _AIRY,
-    "vary_beta_box_gaussian": "the β-sweep trainer "
-                              "(gpe_tpu.train.beta_sweep.train_beta_sweep) and " + _BOX,
+    "multirun_harmonic_mode0": _MULTIRUN,
+    "multirun_box_mode0": _MULTIRUN,
+    "vary_beta_harmonic": _BETA,
+    "vary_beta_gravity_well": _BETA,
+    "vary_beta_box_gaussian": _BETA,
     "p_ramp_harmonic": "the p-ramp trainer (gpe_tpu.train.p_ramp.train_p_ramp)",
-    "deflation_harmonic": "the deflation trainer (gpe_tpu.train.deflation.train_deflation)"
-                          " and the Riesz objective",
-    "helmholtz_square": "the Helmholtz trainer (gpe_tpu.helmholtz.problem.train_helmholtz)",
-    "helmholtz_circle": "the Helmholtz trainer (gpe_tpu.helmholtz.problem.train_helmholtz)",
-    "helmholtz_inverse_k": "the Helmholtz trainer "
-                           "(gpe_tpu.helmholtz.problem.train_helmholtz)",
+    "deflation_harmonic": _DEFLATION,
+    "helmholtz_square": _HELMHOLTZ,
+    "helmholtz_circle": _HELMHOLTZ,
+    "helmholtz_inverse_k": _HELMHOLTZ,
     "gpe2d_relobralo": "the ReLoBRaLo trainer (gpe_tpu.train.balanced.fit_relobralo)",
-    "harmonic_self_adaptive": "self-adaptive weighting "
-                              "(gpe_tpu.losses.balancing.self_adaptive_total) and "
-                              "run.py's fit branch",
-    "gpe2d_anti_trivial": "the anti-trivial loss terms (gpe_tpu.losses.gpe.gpe_terms) "
-                          "and run.py's fit branch",
-    "riesz_mode0": "the Riesz objective (gpe_tpu.losses.gpe.gpe_terms) and run.py's "
-                   "fit branch",
     "different_optimizers_harmonic": "the curriculum trainer and the optimizer zoo "
                                      "(gpe_tpu.train.curriculum.train_curriculum)",
-    "mode0_all_potentials": "the cross-potential branch of run.py and " + _BOX
-                            + " and " + _AIRY,
-    "deflation_2d": "the deflation trainer (gpe_tpu.train.deflation.train_deflation) "
-                    "and the Riesz objective",
+    "deflation_2d": _DEFLATION,
 }

@@ -1,20 +1,31 @@
-"""CLI experiment runner, port of `gpe_tpu/experiments/run.py`'s `plpinn`
-branch:
+"""CLI experiment runner, port of `gpe_tpu/experiments/run.py`'s `plpinn`,
+`fit` and `cross_potential` branches:
 
     python -m gpe_tpu_torch.experiments.run <name> [--train] [--epochs N]
         [--gammas G ...] [--modes M ...] [--pretrain N] [--seed S]
         [--lm-steps N] [--out DIR] [--cpu] [--list]
 
-Train-or-load the bundle `<out>/<name>/bundle.pkl` (`--train` forces a fresh
-run), run `train_plpinn` with the config's `rebase` and `lm_polish`, score a
-2D harmonic run's LM-polished μ against the imaginary-time oracle (384²
-grid, τ 2e-3, Richardson order 2), write `<out>/<name>/summary.json` and
-print one JSON line with the JAX record's keys (`experiment`,
-`mu_table_tail`, `lm_polished` with `mu_ref`/`mu_abs_err`, `wall_s`) plus
-`seconds`, the wall time of each part (pretrain, each γ rung's fit, LM,
-oracle), and on the card `launches`, the f32 K1 and K2 launches of the run
+- `plpinn`: train-or-load the bundle `<out>/<name>/bundle.pkl` (`--train`
+  forces a fresh run), run `train_plpinn` with the config's `rebase` and
+  `lm_polish`, score a 2D harmonic run's LM-polished μ against the
+  imaginary-time oracle (384² grid, τ 2e-3, Richardson order 2); one JSON
+  line with the JAX record's keys (`experiment`, `mu_table_tail`,
+  `lm_polished` with `mu_ref`/`mu_abs_err`, `wall_s`).
+- `fit`: one model trained per γ of the config, warm-started from the last
+  iterate, by Adam (clip 1.0) on the spec's loss (self-adaptive weighting,
+  anti-trivial and Riesz terms, disk geometry); one JSON line per γ with
+  the JAX record's keys (`gamma`, `mu`, `loss`, `epochs`), μ of the
+  normalised best state for a vanilla spec.
+- `cross_potential`: the mode-0 γ ramp of each potential family (harmonic,
+  box, gravity well, Gaussian trap), each trained or loaded from
+  `<out>/<name>/<family>_bundle.pkl`; one JSON line per family with the JAX
+  record's keys (`potential`, `mu_final`, `gamma0_final_loss`).
+
+Every record adds `seconds` (the wall time of each part) and, on the card,
+`launches`: the f32 K1 and K2 launches of what it records
 (`kernels.fused_residual.collocation_sums.launches`,
-`kernels.fused_grad.collocation_grads.launches`).
+`kernels.fused_grad.collocation_grads.launches`). `<out>/<name>/summary.json`
+holds the records as the JAX runner writes them (one record, or the list).
 
 `--out` defaults to `runs_torch`; the port never writes under `runs/`,
 which holds the JAX package's artifacts. The run is on the CUDA card unless
@@ -37,11 +48,28 @@ ORACLE_TAU = 2e-3
 ORACLE_RICHARDSON = 2
 
 
-def _emit(out_dir, record):
-    """Print the run's JSON record and persist it as <out_dir>/summary.json."""
-    print(json.dumps(record, default=str))
+def _write_summary(out_dir, records):
+    """<out_dir>/summary.json as the JAX runner writes it: the record, or
+    the list of records when there are several."""
     with open(os.path.join(out_dir, "summary.json"), "w") as f:
-        json.dump(record, f, indent=2, default=str)
+        json.dump(records if len(records) != 1 else records[0], f, indent=2,
+                  default=str)
+
+
+class _Launches:
+    """The f32 K1 and K2 launch counters, read as differences from a mark."""
+
+    def __init__(self):
+        from gpe_tpu_torch.kernels import fused_grad, fused_residual
+        self.kernels = {"fused_residual": fused_residual.collocation_sums,
+                        "fused_grad": fused_grad.collocation_grads}
+        self.mark()
+
+    def mark(self):
+        self.before = {k: fn.launches for k, fn in self.kernels.items()}
+
+    def since(self) -> dict:
+        return {k: fn.launches - self.before[k] for k, fn in self.kernels.items()}
 
 
 def oracle_mu(spec, gamma: float, device=None) -> float:
@@ -63,6 +91,131 @@ def oracle_mu(spec, gamma: float, device=None) -> float:
 
 def _scored(spec) -> bool:
     return spec.dim == 2 and spec.potential == "harmonic" and not spec.hard_bc
+
+
+def cross_potential_families(spec):
+    """The cross-potential figure's families, each derived from `spec` (the
+    paper's 1D spec): the harmonic trap, the box (hard BC, box base), the
+    gravity well (linear potential on [0, 35], Airy base) and a Gaussian
+    trap on the Hermite base."""
+    replace = dataclasses.replace
+    return {
+        "harmonic": spec,
+        "box": replace(spec, lb=0.0, ub=1.0, potential="box", basis="box",
+                       hard_bc=True),
+        "gravity_well": replace(spec, lb=0.0, ub=35.0, potential="linear",
+                                basis="airy"),
+        "gaussian": replace(spec, potential="gaussian"),
+    }
+
+
+def _train(cfg, spec, modes, dev, lm_steps):
+    from gpe_tpu_torch.train import train_plpinn
+
+    return train_plpinn(spec, cfg.gamma_values, modes, epochs=cfg.epochs,
+                        tol=cfg.tol, patience=cfg.patience,
+                        perturb_const=cfg.perturb_const, lr=cfg.lr, seed=cfg.seed,
+                        pretrain_epochs=cfg.pretrain_epochs, rebase=cfg.rebase,
+                        lm_polish=cfg.lm_polish, lm_steps=lm_steps, verbose=True,
+                        device=dev)
+
+
+def _run_plpinn(cfg, args, dev, out_dir, emit):
+    from gpe_tpu_torch.io import load_bundle, save_bundle
+
+    bundle_path = os.path.join(out_dir, "bundle.pkl")
+    launches = _Launches()
+    t0 = time.time()
+    polished, seconds = None, {}
+    if args.train or not os.path.exists(bundle_path):
+        res = _train(cfg, cfg.spec, cfg.modes, dev, args.lm_steps)
+        polished, seconds = res.polished, dict(res.seconds)
+        save_bundle(bundle_path, res, cfg.spec)
+    bundle = load_bundle(bundle_path)
+    extra = {}
+    if polished:
+        extra["lm_polished"] = {
+            m: {k: v for k, v in pol.items() if k not in ("params", "base_val")}
+            for m, pol in polished.items()}
+        if _scored(cfg.spec):
+            seconds["oracle"] = {}
+            for m, pol in extra["lm_polished"].items():
+                t1 = time.perf_counter()
+                pol["mu_ref"] = oracle_mu(cfg.spec, pol["gamma"], device=dev)
+                pol["mu_abs_err"] = abs(pol["mu"] - pol["mu_ref"])
+                seconds["oracle"][m] = time.perf_counter() - t1
+                print(f"mode {m}: oracle μ_ref={pol['mu_ref']:.12f} "
+                      f"({seconds['oracle'][m]:.2f} s), |μ − μ_ref| = "
+                      f"{pol['mu_abs_err']:.3e}")
+    record = {"experiment": cfg.name,
+              "mu_table_tail": {str(m): v[-1] for m, v in bundle["mu_table"].items()},
+              **extra,
+              "wall_s": round(time.time() - t0, 1)}
+    if seconds:
+        record["seconds"] = seconds
+    if dev.type == "cuda":
+        record["launches"] = launches.since()
+    emit(record)
+
+
+def _run_fit(cfg, dev, emit):
+    import torch
+
+    from gpe_tpu_torch.train.deflation import _normalized_mu
+    from gpe_tpu_torch.train.loop import fit
+    from gpe_tpu_torch.train.optimizers import make_optimizer
+    from gpe_tpu_torch.train.problem import (init_params, make_batch, make_loss_fn,
+                                             net_params)
+
+    spec = cfg.spec
+    batch = make_batch(spec, cfg.modes[0], device=dev)
+    loss_fn = make_loss_fn(spec)
+    params = init_params(spec, torch.Generator().manual_seed(cfg.seed), device=dev)
+    opt = make_optimizer("adam", cfg.lr, clip_norm=1.0)
+    launches = _Launches()
+    for g in cfg.gamma_values:
+        launches.mark()
+        t0 = time.perf_counter()
+        res = fit(loss_fn, opt, params, batch, g, 1.0, epochs=cfg.epochs,
+                  tol=cfg.tol, patience=cfg.patience)
+        params = res.final_params
+        # μ of the NORMALISED best state for a vanilla spec: the nonlinear
+        # term's strength depends on ∫u² = 1, and the raw Rayleigh quotient
+        # drifts with the residual normalisation error
+        mu = (float(_normalized_mu(spec, net_params(res.params), batch, g))
+              if not spec.use_perturbation else res.mu_best)
+        record = {"gamma": g, "mu": mu, "loss": res.best_loss,
+                  "epochs": res.epochs_run,
+                  "seconds": {"fit": time.perf_counter() - t0}}
+        if dev.type == "cuda":
+            record["launches"] = launches.since()
+        emit(record)
+
+
+def _run_cross_potential(cfg, args, dev, out_dir, emit):
+    from gpe_tpu_torch.io import load_bundle, save_bundle
+
+    launches = _Launches()
+    for label, fspec in cross_potential_families(cfg.spec).items():
+        bpath = os.path.join(out_dir, f"{label}_bundle.pkl")
+        launches.mark()
+        seconds = {}
+        if args.train or not os.path.exists(bpath):
+            res = _train(cfg, fspec, (0,), dev, args.lm_steps)
+            seconds = dict(res.seconds)
+            save_bundle(bpath, res, fspec)
+        b = load_bundle(bpath)
+        g0 = sorted(b["training_history"][0])[0]
+        record = {"potential": label, "mu_final": b["mu_table"][0][-1],
+                  "gamma0_final_loss": float(b["training_history"][0][g0]["loss"][-1])}
+        if seconds:
+            record["seconds"] = seconds
+        if dev.type == "cuda":
+            record["launches"] = launches.since()
+        emit(record)
+
+
+BRANCHES = ("plpinn", "fit", "cross_potential")
 
 
 def main(argv=None):
@@ -95,9 +248,6 @@ def main(argv=None):
         raise KeyError(f"unknown experiment {args.name!r}; have {sorted(EXPERIMENTS)}")
 
     from gpe_tpu_torch.device import resolve_device
-    from gpe_tpu_torch.io import load_bundle, save_bundle
-    from gpe_tpu_torch.kernels import fused_grad, fused_residual
-    from gpe_tpu_torch.train import train_plpinn
 
     cfg = EXPERIMENTS[args.name]
     for field, value in (("epochs", args.epochs), ("pretrain_epochs", args.pretrain),
@@ -108,53 +258,26 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, modes=tuple(args.modes))
     if args.gammas is not None:
         cfg = dataclasses.replace(cfg, gamma_values=tuple(args.gammas))
-    if cfg.algorithm != "plpinn":
+    if cfg.algorithm not in BRANCHES:
         raise NotImplementedError(f"algorithm {cfg.algorithm!r} is not ported yet; "
                                   "see gpe_tpu.experiments.run")
     dev = resolve_device("cpu" if args.cpu else None)
 
     out_dir = os.path.join(args.out, cfg.name)
     os.makedirs(out_dir, exist_ok=True)
-    bundle_path = os.path.join(out_dir, "bundle.pkl")
-    kernels = {"fused_residual": fused_residual.collocation_sums,
-               "fused_grad": fused_grad.collocation_grads}
-    before = {k: fn.launches for k, fn in kernels.items()}
-    t0 = time.time()
-    polished, seconds = None, {}
-    if args.train or not os.path.exists(bundle_path):
-        res = train_plpinn(cfg.spec, cfg.gamma_values, cfg.modes,
-                           epochs=cfg.epochs, tol=cfg.tol, patience=cfg.patience,
-                           perturb_const=cfg.perturb_const, lr=cfg.lr,
-                           seed=cfg.seed, pretrain_epochs=cfg.pretrain_epochs,
-                           rebase=cfg.rebase, lm_polish=cfg.lm_polish,
-                           lm_steps=args.lm_steps, verbose=True, device=dev)
-        polished, seconds = res.polished, dict(res.seconds)
-        save_bundle(bundle_path, res, cfg.spec)
-    bundle = load_bundle(bundle_path)
-    extra = {}
-    if polished:
-        extra["lm_polished"] = {
-            m: {k: v for k, v in pol.items() if k not in ("params", "base_val")}
-            for m, pol in polished.items()}
-        if _scored(cfg.spec):
-            seconds["oracle"] = {}
-            for m, pol in extra["lm_polished"].items():
-                t1 = time.perf_counter()
-                pol["mu_ref"] = oracle_mu(cfg.spec, pol["gamma"], device=dev)
-                pol["mu_abs_err"] = abs(pol["mu"] - pol["mu_ref"])
-                seconds["oracle"][m] = time.perf_counter() - t1
-                print(f"mode {m}: oracle μ_ref={pol['mu_ref']:.12f} "
-                      f"({seconds['oracle'][m]:.2f} s), |μ − μ_ref| = "
-                      f"{pol['mu_abs_err']:.3e}")
-    record = {"experiment": cfg.name,
-              "mu_table_tail": {str(m): v[-1] for m, v in bundle["mu_table"].items()},
-              **extra,
-              "wall_s": round(time.time() - t0, 1)}
-    if seconds:
-        record["seconds"] = seconds
-    if dev.type == "cuda":
-        record["launches"] = {k: fn.launches - before[k] for k, fn in kernels.items()}
-    _emit(out_dir, record)
+    records = []
+
+    def emit(record):
+        print(json.dumps(record, default=str), flush=True)
+        records.append(record)
+
+    if cfg.algorithm == "plpinn":
+        _run_plpinn(cfg, args, dev, out_dir, emit)
+    elif cfg.algorithm == "fit":
+        _run_fit(cfg, dev, emit)
+    else:
+        _run_cross_potential(cfg, args, dev, out_dir, emit)
+    _write_summary(out_dir, records)
     return 0
 
 

@@ -47,12 +47,20 @@ def init_mlp(layers: Sequence[int], scheme: str = "xavier_uniform",
 
 
 def params_from_numpy(params, device=None, dtype=torch.float32):
-    """JAX-layout params given as numpy (W, b) pairs → the port's params on
-    `device` (None → the CUDA card): the weight carry between the packages."""
+    """JAX-layout params given as numpy leaves → the port's params on
+    `device` (None → the CUDA card): the weight carry between the packages.
+    (W, b) pairs become a tuple of tensor pairs; a dict (the self-adaptive
+    {"net", "log_alpha"}) keeps its keys, each value carried the same way."""
     device = resolve_device(device)
-    return tuple((torch.tensor(np.asarray(w), dtype=dtype, device=device),
-                  torch.tensor(np.asarray(b), dtype=dtype, device=device))
-                 for w, b in params)
+
+    def carry(tree):
+        if isinstance(tree, dict):
+            return {k: carry(v) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return tuple(carry(v) for v in tree)
+        return torch.tensor(np.asarray(tree), dtype=dtype, device=device)
+
+    return carry(params)
 
 
 def mlp_apply(params, x: torch.Tensor, activation: str = "tanh") -> torch.Tensor:

@@ -1,4 +1,6 @@
-"""Collocation grids and quadrature weights, port of `gpe_tpu/ops/quadrature.py`."""
+"""Collocation grids, quadrature weights and reductions, port of
+`gpe_tpu/ops/quadrature.py` (single device: the psums wait for the mesh
+port)."""
 from __future__ import annotations
 
 import torch
@@ -33,3 +35,19 @@ def riemann_weights(lb, ub, n: int, d: int = 1, dtype=torch.float64,
     """Plain Riemann weights dx^d (the reference's Σu²·dx convention)."""
     h = (ub - lb) / (n - 1)
     return torch.full((n ** d,), h ** d, dtype=dtype, device=device)
+
+
+def _acc(dtype) -> torch.dtype:
+    """At least float32 accumulation, whatever the element dtype."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def integrate(fx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """∫f ≈ Σᵢ wᵢ f(xᵢ), accumulated in at least float32."""
+    wf = w * fx
+    return torch.sum(wf, dtype=_acc(wf.dtype))
+
+
+def wmean(fx: torch.Tensor) -> torch.Tensor:
+    """Mean over the collocation points, accumulated in at least float32."""
+    return torch.sum(fx, dtype=_acc(fx.dtype)) / fx.numel()

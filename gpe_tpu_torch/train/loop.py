@@ -9,7 +9,8 @@ Everything the loop carries — params, optimizer state, best params, best
 loss, patience counter, done flag, stop epoch — stays on the device. The
 host reads the done flag and the loss/μ histories once per `check_every`
 chunk, never per step; steps after an early stop inside a chunk are masked
-(computed, not applied), as in the JAX scan.
+(computed, not applied), as in the JAX scan. Params are any tree of tensors
+(the MLP's (W, b) pairs, or the self-adaptive {"net", "log_alpha"}).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from gpe_tpu_torch.device import pin_full_f32
 
@@ -45,22 +47,22 @@ class EnsembleFitResult(NamedTuple):
 
 def value_and_grad(loss_fn: Callable) -> Callable:
     """vag(params, batch, gamma, scale) -> ((total, aux), grads) by autograd
-    — the twin of jax.value_and_grad(loss_fn, has_aux=True)."""
+    — the twin of jax.value_and_grad(loss_fn, has_aux=True); params is any
+    tree of tensors, grads has its structure."""
     def vag(params, batch, gamma, scale):
-        leaves = [t.detach().requires_grad_(True) for pair in params for t in pair]
-        pairs = tuple((leaves[i], leaves[i + 1]) for i in range(0, len(leaves), 2))
+        leaves, spec = pytree.tree_flatten(params)
+        leaves = [t.detach().requires_grad_(True) for t in leaves]
         with torch.enable_grad():
-            total, aux = loss_fn(pairs, batch, gamma, scale)
+            total, aux = loss_fn(pytree.tree_unflatten(leaves, spec), batch,
+                                 gamma, scale)
             grads = torch.autograd.grad(total, leaves)
         aux = {k: v.detach() for k, v in aux.items()}
-        gpairs = tuple((grads[i], grads[i + 1]) for i in range(0, len(grads), 2))
-        return (total.detach(), aux), gpairs
+        return (total.detach(), aux), pytree.tree_unflatten(list(grads), spec)
     return vag
 
 
 def _where(cond, a, b):
-    return tuple((torch.where(cond, wa, wb), torch.where(cond, ba, bb))
-                 for (wa, ba), (wb, bb) in zip(a, b))
+    return pytree.tree_map(lambda x, y: torch.where(cond, x, y), a, b)
 
 
 def _as_device_scalar(v, device) -> torch.Tensor:
@@ -106,8 +108,7 @@ def fit(loss_fn: Callable, optimizer, params, batch, gamma, scale,
             else:
                 (loss, aux), grads = vag(params, batch, gamma, scale)
             updates, opt_state = optimizer.update(grads, opt_state, loss)
-            new_params = tuple((w + uw, b + ub)
-                               for (w, b), (uw, ub) in zip(params, updates))
+            new_params = pytree.tree_map(torch.add, params, updates)
             improved = (loss < best_loss) & ~done
             best_loss = torch.where(improved, loss, best_loss)
             best_params = _where(improved, params, best_params)

@@ -1,16 +1,24 @@
-"""The ramp optimizer as a small explicit transform (the port of the optax
-chain in `gpe_tpu/train/plpinn.py:ramp_optimizer`, "loss_faithful" mode):
+"""Optimizers as small explicit transforms, functional like optax —
+`init(params) -> state`, `update(grads, state, value) -> (updates, state)` —
+so fit() can mask updates on the device. Params and grads are any tree of
+tensors (torch.utils._pytree: the MLP's (W, b) pairs, or the self-adaptive
+{"net", "log_alpha"} dict).
+
+`ClipAdam` is the chain every ramp optimizer of `gpe_tpu/train/plpinn.py`
+and `make_optimizer("adam", ...)` of `gpe_tpu/train/optimizers.py` build:
 
     clip_by_global_norm(clip) → scale_by_adam(b1, b2, eps, eps_root=0)
-    → scale_by_loss_as_step(schedule): −schedule(loss)·update
+    → step(updates, loss) → × count_scale(count)
 
-Functional like optax — `init(params) -> state`,
-`update(grads, state, value) -> (updates, state)` — so fit() can mask
-updates on the device. Params and grads are tuples of (W, b).
+`count` is the number of updates before this one, the count optax's
+`scale_by_schedule` reads (so a schedule's first update reads count 0).
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
+from torch.utils import _pytree as pytree
 
 
 def _leaves(tree):
@@ -45,21 +53,48 @@ def adam_init(leaves) -> dict:
 
 
 class ClipAdam:
-    """Global-norm clip, Adam (optax.scale_by_adam defaults), then
-    `step(updates, loss)` — e.g. schedules.scale_by_loss_as_step."""
+    """Global-norm clip (none when clip is None), Adam (optax.scale_by_adam
+    defaults), then `step(updates, loss)` — e.g. schedules.scale_by_loss_as_step
+    — and a factor `count_scale(count)` (a step-count schedule, −lr for a
+    plain Adam)."""
 
-    def __init__(self, step, clip: float = 1.0, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8):
+    def __init__(self, step: Callable | None = None, clip: float | None = 1.0,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 count_scale: Callable | None = None):
         self.step, self.clip, self.b1, self.b2, self.eps = step, clip, b1, b2, eps
+        self.count_scale = count_scale
 
     def init(self, params):
-        return adam_init(_leaves(params))
+        return adam_init(pytree.tree_leaves(params))
 
     def update(self, grads, state, value):
-        g = _leaves(grads)
-        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
-        factor = torch.where(g_norm < self.clip, torch.ones_like(g_norm),
-                             self.clip / g_norm)
-        g = torch._foreach_mul(g, factor)
+        g, spec = pytree.tree_flatten(grads)
+        if self.clip is not None:
+            g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+            factor = torch.where(g_norm < self.clip, torch.ones_like(g_norm),
+                                 self.clip / g_norm)
+            g = torch._foreach_mul(g, factor)
+        count = state["count"]
         u, state = scale_by_adam(g, state, self.b1, self.b2, self.eps)
-        return _pairs(self.step(u, value)), state
+        if self.step is not None:
+            u = self.step(u, value)
+        if self.count_scale is not None:
+            u = torch._foreach_mul(u, self.count_scale(count))
+        return pytree.tree_unflatten(u, spec), state
+
+
+def make_optimizer(name: str, learning_rate: float | Callable = 1e-3,
+                   clip_norm: float | None = None) -> ClipAdam:
+    """`make_optimizer` of the JAX package for "adam" (optax.adam, after a
+    global-norm clip when clip_norm is given); learning_rate is a float or
+    a schedule of the update count. The other optimizers wait for their
+    port."""
+    if name.lower() != "adam":
+        raise NotImplementedError(
+            f"optimizer {name!r} is not ported yet; see "
+            "gpe_tpu.train.optimizers.make_optimizer")
+    if callable(learning_rate):
+        count_scale = lambda count: -learning_rate(count)
+    else:
+        count_scale = lambda count: -float(learning_rate)
+    return ClipAdam(clip=clip_norm, count_scale=count_scale)

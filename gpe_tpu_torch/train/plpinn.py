@@ -1,5 +1,5 @@
 """PL-PINN continuation training, port of `gpe_tpu/train/plpinn.py`
-(`train_plpinn`, `_rebase`, `ramp_optimizer`).
+(`train_plpinn`, `_rebase`, `ramp_optimizer` with all its lr modes).
 
 Per mode: pretrain the raw net on the analytic base (γ = 0 start), capture
 normal_const = max net(x) and scale the perturbation by q/normal_const; then
@@ -20,7 +20,7 @@ import torch
 from gpe_tpu_torch.device import pin_full_f32, resolve_device
 from gpe_tpu_torch.models import mlp
 from gpe_tpu_torch.train.loop import fit
-from gpe_tpu_torch.train.optimizers import ClipAdam
+from gpe_tpu_torch.train.optimizers import ClipAdam, make_optimizer
 from gpe_tpu_torch.train.pretrain import pretrain_to_base
 from gpe_tpu_torch.train.problem import (GPESpec, spec_ansatz, base_triple,
                                          make_batch, make_fused_value_and_grad,
@@ -28,16 +28,37 @@ from gpe_tpu_torch.train.problem import (GPESpec, spec_ansatz, base_triple,
 from gpe_tpu_torch.train.schedules import cosine_warm_restarts, scale_by_loss_as_step
 
 
+def _warmup(count):
+    """The 200-step linear warmup factor min(1, count/200)."""
+    return torch.clamp(count / 200.0, max=1.0)
+
+
 def ramp_optimizer(lr: float = 1e-3, lr_mode: str = "loss_faithful"):
-    """The continuation-ramp optimizer in the reference's effective LR
-    behaviour ("loss_faithful"): global-norm clip 1.0, Adam, and the
-    warm-restart schedule (T₀=200, T_mult=2) evaluated at the current loss."""
-    if lr_mode != "loss_faithful":
-        raise NotImplementedError(
-            f"lr_mode={lr_mode!r} is not ported yet; see "
-            "gpe_tpu.train.plpinn.ramp_optimizer")
+    """The continuation-ramp optimizer: global-norm clip 1.0, Adam, and the
+    LR of `lr_mode`, as the JAX package's optax chains compute it:
+
+    - "loss_faithful" (default): the reference's effective LR, the
+      warm-restart schedule (T₀=200, T_mult=2) evaluated at the current loss;
+    - "cosine": that schedule over the update count (the one the reference
+      authored);
+    - "constant": lr;
+    - "warmup_faithful": loss_faithful × min(1, count/200);
+    - "warmup_cosine": cosine × min(1, count/200).
+
+    The count is optax's schedule count, the updates before this one: the
+    warmup modes' first update is scaled by 0."""
     sched = cosine_warm_restarts(lr, T_0=200, T_mult=2, eta_min=1e-6)
-    return ClipAdam(scale_by_loss_as_step(sched), clip=1.0)
+    if lr_mode == "loss_faithful":
+        return ClipAdam(scale_by_loss_as_step(sched), clip=1.0)
+    if lr_mode == "cosine":
+        return make_optimizer("adam", sched, clip_norm=1.0)
+    if lr_mode == "constant":
+        return make_optimizer("adam", lr, clip_norm=1.0)
+    if lr_mode == "warmup_faithful":
+        return ClipAdam(scale_by_loss_as_step(sched), clip=1.0, count_scale=_warmup)
+    if lr_mode == "warmup_cosine":
+        return ClipAdam(clip=1.0, count_scale=lambda c: -(sched(c) * _warmup(c)))
+    raise ValueError(f"unknown lr_mode {lr_mode!r}")
 
 
 class PLPINNResult(NamedTuple):
@@ -53,10 +74,14 @@ class PLPINNResult(NamedTuple):
 
 def _rebase(spec: GPESpec, batch: dict, params, scale: float,
             generator: torch.Generator) -> tuple:
-    """Fold the current perturbation into the base arrays and reset the
-    output layer to a tiny random map (1e-3·N(0,1) from `generator`; an
-    exactly-zero last layer would zero the Jacobian w.r.t. every hidden
-    param), keeping the hidden features as a warm start."""
+    """Fold the current perturbation into the base arrays (the reflected
+    base too, under a symmetry) and reset the output layer to a tiny random
+    map (1e-3·N(0,1) from `generator`; an exactly-zero last layer would
+    zero the Jacobian w.r.t. every hidden param), keeping the hidden
+    features as a warm start. The fold goes through the loss's own ansatz
+    (the hard-BC sine factor included): folding the raw net under a hard-BC
+    spec rebases onto a function the loss never saw, and the continuation
+    diverges (the JAX package caught it on p3_gaussian)."""
     a = spec_ansatz(spec)
     with torch.no_grad():
         n = a.vgl(params, batch["x"], 1.0)
@@ -65,6 +90,9 @@ def _rebase(spec: GPESpec, batch: dict, params, scale: float,
         batch["base_grad"] = batch["base_grad"] + scale * n.grad
         batch["base_lap"] = batch["base_lap"] + scale * n.lap
         batch["base_bval"] = batch["base_bval"] + scale * a.value(params, batch["bx"], 1.0)
+        if "base_val_reflect" in batch:
+            batch["base_val_reflect"] = (batch["base_val_reflect"]
+                                         + scale * a.value(params, batch["x_reflect"], 1.0))
     w_last, b_last = params[-1]
     w_new = 1e-3 * torch.randn(w_last.shape, generator=generator,
                                dtype=torch.float64)

@@ -14,11 +14,12 @@ from typing import Callable
 import torch
 
 from gpe_tpu_torch.device import resolve_device
-from gpe_tpu_torch.losses.balancing import fixed_weights_total
+from gpe_tpu_torch.losses.balancing import (fixed_weights_total, init_log_alpha,
+                                            self_adaptive_total)
 from gpe_tpu_torch.losses.gpe import GPETerms, gpe_terms
 from gpe_tpu_torch.models import mlp
-from gpe_tpu_torch.models.ansatz import plain_ansatz
-from gpe_tpu_torch.ops import quadrature
+from gpe_tpu_torch.models.ansatz import box_sine_factor, hard_bc_ansatz, plain_ansatz
+from gpe_tpu_torch.ops import geometry, quadrature
 from gpe_tpu_torch.physics import bases, potentials
 
 
@@ -89,82 +90,116 @@ class GPESpec:
 
 
 def base_triple(spec: GPESpec, mode: int, x: torch.Tensor) -> bases.ValGradLap:
-    """Analytic base eigenfunction triple (Hermite family; 2D and d≥3 use
-    tensor products with the mode on the first axis)."""
+    """Analytic base eigenfunction triple of the spec's basis family (in 2D
+    and d ≥ 3 tensor products with the mode on the first axis)."""
     if spec.basis in ("hermite", "hermite2d"):
         if spec.dim == 2 or spec.basis == "hermite2d":
             return bases.hermite_product_2d(mode, 0, x)
         if spec.dim >= 3:
             return bases.hermite_product_nd((mode,) + (0,) * (spec.dim - 1), x)
         return bases.hermite_basis(mode, x)
-    raise NotImplementedError(
-        f"basis {spec.basis!r} is not ported yet; see "
-        "gpe_tpu.train.problem.base_triple")
+    if spec.basis == "box":
+        if spec.dim == 2:
+            return bases.box_basis_2d(mode, 0, x, L=spec.ub - spec.lb)
+        return bases.box_basis(mode, x, L=spec.ub - spec.lb)
+    if spec.basis == "airy":
+        return bases.airy_basis(mode, x)
+    if spec.basis.startswith("numeric:"):
+        raise NotImplementedError(
+            f"basis {spec.basis!r} (physics/numeric.py) is not ported yet; see "
+            "gpe_tpu.train.problem.base_triple")
+    raise ValueError(f"unknown basis {spec.basis!r}")
 
 
-def make_batch(spec: GPESpec, mode: int, device=None) -> dict:
-    """Grid, Riemann weights, potential, base triple and boundary probes on
-    `device` (square geometry). Built in float64, stored in spec.dtype."""
-    dev = resolve_device(device)
-    if spec.geometry != "square":
-        raise NotImplementedError(
-            f"geometry {spec.geometry!r} is not ported yet; see "
-            "gpe_tpu.train.problem.make_batch")
-    if spec.symmetry is not None:
-        raise NotImplementedError(
-            "symmetry reflections are not ported yet; see "
-            "gpe_tpu.train.problem.make_batch")
+def _boundary_points(spec: GPESpec, dev) -> torch.Tensor:
+    """Dirichlet probes of the square [lb, ub]^d: both ends in 1D, 64 points
+    an edge in 2D, a (d−1)-dim grid on each face for d ≥ 3."""
     f64 = torch.float64
-    x = quadrature.uniform_grid(spec.lb, spec.ub, spec.n_points, d=spec.dim,
-                                dtype=f64, device=dev)
-    dx = (spec.ub - spec.lb) / (spec.n_points - 1)
-    w = torch.full((x.shape[0],), dx ** spec.dim, dtype=f64, device=dev)
-    vfn = potentials.get_potential(spec.potential, **dict(spec.potential_kwargs))
-    V = vfn(x)
     if spec.dim == 1:
-        bx = torch.tensor([[spec.lb], [spec.ub]], dtype=f64, device=dev)
-    elif spec.dim == 2:
+        return torch.tensor([[spec.lb], [spec.ub]], dtype=f64, device=dev)
+    if spec.dim == 2:
         edges = torch.linspace(spec.lb, spec.ub, 64, dtype=f64, device=dev)
         lo = torch.full_like(edges, spec.lb)
         hi = torch.full_like(edges, spec.ub)
-        bx = torch.cat([torch.stack([edges, lo], -1), torch.stack([edges, hi], -1),
-                        torch.stack([lo, edges], -1), torch.stack([hi, edges], -1)],
-                       dim=0)
+        return torch.cat([torch.stack([edges, lo], -1), torch.stack([edges, hi], -1),
+                          torch.stack([lo, edges], -1), torch.stack([hi, edges], -1)],
+                         dim=0)
+    m = max(2, int(round((256.0 / (2 * spec.dim)) ** (1.0 / (spec.dim - 1)))))
+    face_pts = quadrature.uniform_grid(spec.lb, spec.ub, m, d=spec.dim - 1,
+                                       dtype=f64, device=dev)
+    faces = []
+    for axis in range(spec.dim):
+        for bound in (spec.lb, spec.ub):
+            col = torch.full((face_pts.shape[0], 1), bound, dtype=f64, device=dev)
+            faces.append(torch.cat([face_pts[:, :axis], col, face_pts[:, axis:]],
+                                   dim=1))
+    return torch.cat(faces, dim=0)
+
+
+def make_batch(spec: GPESpec, mode: int, device=None) -> dict:
+    """Grid, weights, potential, base triple, boundary probes and (with a
+    symmetry) the reflected points on `device`. geometry="square": the
+    uniform grid on [lb, ub]^d with Riemann weights; "disk" (2D): n_points²
+    sunflower points, equal-area weights and n_boundary rim probes. Built in
+    float64, stored in spec.dtype."""
+    dev = resolve_device(device)
+    f64 = torch.float64
+    if spec.geometry == "disk":
+        if spec.dim != 2:
+            raise ValueError("disk geometry requires dim=2")
+        center = spec.center or ((spec.lb + spec.ub) / 2.0,) * 2
+        radius = spec.radius or (spec.ub - spec.lb) / 2.0
+        n_total = spec.n_points ** 2
+        x = geometry.disk_points(center, radius, n_total, f64, dev)
+        w = geometry.disk_weights(radius, n_total, f64, dev)
+        bx = geometry.circle_points(center, radius, spec.n_boundary, f64, dev)
+    elif spec.geometry == "square":
+        x = quadrature.uniform_grid(spec.lb, spec.ub, spec.n_points, d=spec.dim,
+                                    dtype=f64, device=dev)
+        dx = (spec.ub - spec.lb) / (spec.n_points - 1)
+        w = torch.full((x.shape[0],), dx ** spec.dim, dtype=f64, device=dev)
+        bx = _boundary_points(spec, dev)
     else:
-        m = max(2, int(round((256.0 / (2 * spec.dim)) ** (1.0 / (spec.dim - 1)))))
-        face_pts = quadrature.uniform_grid(spec.lb, spec.ub, m, d=spec.dim - 1,
-                                           dtype=f64, device=dev)
-        faces = []
-        for axis in range(spec.dim):
-            for bound in (spec.lb, spec.ub):
-                col = torch.full((face_pts.shape[0], 1), bound, dtype=f64,
-                                 device=dev)
-                faces.append(torch.cat([face_pts[:, :axis], col,
-                                        face_pts[:, axis:]], dim=1))
-        bx = torch.cat(faces, dim=0)
-    batch = {"x": x, "w": w, "V": V, "bx": bx}
+        raise ValueError(f"unknown geometry {spec.geometry!r}")
+    vfn = potentials.get_potential(spec.potential, **dict(spec.potential_kwargs))
+    batch = {"x": x, "w": w, "V": vfn(x), "bx": bx}
     if spec.use_perturbation:
         b = base_triple(spec, mode, x)
         batch["base_val"] = b.value
         batch["base_grad"] = b.grad
         batch["base_lap"] = b.lap
         batch["base_bval"] = base_triple(spec, mode, bx).value
+    if spec.symmetry is not None and spec.geometry == "square":
+        if spec.symmetry == "interval":
+            xr = (spec.lb + spec.ub) - x
+        elif spec.symmetry == "y_even":
+            # u(x, y) = u(x, −y): the last coordinate flips
+            flip = torch.tensor([1.0] * (spec.dim - 1) + [-1.0], dtype=f64, device=dev)
+            xr = x * flip
+        else:
+            xr = -x
+        batch["x_reflect"] = xr
+        if spec.use_perturbation:
+            batch["base_val_reflect"] = base_triple(spec, mode, xr).value
     return {k: v.to(spec.dtype).contiguous() for k, v in batch.items()}
 
 
 def spec_ansatz(spec: GPESpec):
-    if spec.hard_bc:
-        raise NotImplementedError(
-            "the hard-BC ansatz is not ported yet; see "
-            "gpe_tpu.models.ansatz.hard_bc_ansatz")
+    """The ansatz of the loss: ψ = g·s·N with the box's sine factor g for a
+    hard-BC spec, else ψ = s·N (the perturbation base enters through the
+    batch arrays)."""
     act = spec.activation
-    return plain_ansatz(lambda p, x: mlp.mlp_vgl(p, x, act),
-                        lambda p, x: mlp.mlp_apply(p, x, act))
+    net_vgl = lambda p, x: mlp.mlp_vgl(p, x, act)
+    net_value = lambda p, x: mlp.mlp_apply(p, x, act)
+    if spec.hard_bc:
+        return hard_bc_ansatz(net_vgl, net_value, box_sine_factor(spec.lb, spec.ub))
+    return plain_ansatz(net_vgl, net_value)
 
 
 def make_terms_fn(spec: GPESpec) -> Callable:
     """terms_fn(net_params, batch, gamma, scale) -> TermsOutput from ONE
-    forward-Laplacian evaluation of the complete solution."""
+    forward-Laplacian evaluation of the complete solution (perturbation and
+    hard-BC composition here, the terms in losses/gpe.py)."""
     cfg = spec.terms_cfg()
     a = spec_ansatz(spec)
 
@@ -179,35 +214,60 @@ def make_terms_fn(spec: GPESpec) -> Callable:
             grad = batch["base_grad"] + grad
             lap = batch["base_lap"] + lap
             bv = batch["base_bval"] + bv
-        return gpe_terms(u, grad, lap, bv, batch["V"], batch["w"], gamma, cfg)
+        u_reflect = None
+        if cfg.symmetry is not None:
+            u_reflect = a.value(net_params, batch["x_reflect"], 1.0) * scale
+            if spec.use_perturbation:
+                u_reflect = batch["base_val_reflect"] + u_reflect
+        x2 = torch.sum(batch["x"] * batch["x"], dim=-1) if cfg.width_penalty else None
+        return gpe_terms(u, grad, lap, bv, batch["V"], batch["w"], gamma, cfg,
+                         u_reflect=u_reflect, x2=x2)
 
     return terms_fn
 
 
+def net_params(params):
+    """The MLP params of a (possibly weighting-augmented) params tree."""
+    if isinstance(params, dict) and "net" in params:
+        return params["net"]
+    return params
+
+
 def init_params(spec: GPESpec, generator: torch.Generator | None = None,
                 scheme: str = "xavier_uniform", mode: int = 0, device=None):
-    """Trainable params for a spec (fixed weighting: the raw MLP params)."""
-    if spec.weighting != "fixed":
-        raise NotImplementedError(
-            f"weighting {spec.weighting!r} is not ported yet; see "
-            "gpe_tpu.train.problem.init_params")
-    return mlp.init_mlp(spec.layers, scheme, mode=mode, generator=generator,
-                        dtype=spec.dtype, device=resolve_device(device))
+    """Trainable params of a spec on `device` (None → the CUDA card): the
+    MLP params for fixed weighting, {"net", "log_alpha"} for self-adaptive
+    (the log-weights train jointly with the net)."""
+    dev = resolve_device(device)
+    net = mlp.init_mlp(spec.layers, scheme, mode=mode, generator=generator,
+                       dtype=spec.dtype, device=dev)
+    if spec.weighting == "self_adaptive":
+        return {"net": net, "log_alpha": init_log_alpha(spec.loss_weights(),
+                                                        spec.dtype, dev)}
+    return net
 
 
 def make_loss_fn(spec: GPESpec) -> Callable:
-    """loss_fn(params, batch, gamma, scale) -> (total, aux) with fixed
-    weighting Σ wᵢ·Lᵢ (paper: pde + 10·bc + 20·norm)."""
-    if spec.weighting != "fixed":
-        raise NotImplementedError(
-            f"weighting {spec.weighting!r} is not ported yet; see "
-            "gpe_tpu.train.problem.make_loss_fn")
+    """loss_fn(params, batch, gamma, scale) -> (total, aux). weighting
+    "fixed": Σ wᵢ·Lᵢ (paper: pde + 10·bc + 20·norm); "self_adaptive":
+    params = {"net", "log_alpha"}, weights wᵢ·exp(log_alphaᵢ) that ascend
+    (losses/balancing.py:self_adaptive_total)."""
     terms_fn = make_terms_fn(spec)
     weights = spec.loss_weights()
+    if spec.weighting == "self_adaptive":
+        def total_of(params, losses):
+            return self_adaptive_total(losses, params["log_alpha"], weights)
+        net_of = net_params
+    elif spec.weighting == "fixed":
+        def total_of(params, losses):
+            return fixed_weights_total(losses, weights)
+        net_of = lambda params: params
+    else:
+        raise ValueError(f"unknown weighting {spec.weighting!r}")
 
     def loss_fn(params, batch, gamma, scale):
-        out = terms_fn(params, batch, gamma, scale)
-        total = fixed_weights_total(out.losses, weights)
+        out = terms_fn(net_of(params), batch, gamma, scale)
+        total = total_of(params, out.losses)
         aux = dict(out.losses)
         aux["mu"] = out.mu
         aux["total"] = total

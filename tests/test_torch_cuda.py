@@ -370,3 +370,39 @@ def test_k1_split_tf32_forward_keeps_f32_parity(cuda_device, layers, n, R):
                 torch.linspace(0.01, 0.1, R, device=cuda_device), bval, blap, *phys)
         got, want = k1.collocation_sums_runs(*args), k1.collocation_sums_runs_plain(*args)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4)
+
+
+@pytest.mark.parametrize("mode,gamma,scale", [(0, 0.0, 0.01), (1, 5.0, 0.05),
+                                              (5, 100.0, 0.01)])
+def test_kernels_on_the_gravity_well_batch(cuda_device, mode, gamma, scale):
+    """K1 and K2 on `gravity_well_paper`'s batch (4,000 points on [0, 35],
+    lb = 0, the linear potential, the Airy base and its Laplacian from the
+    device table) against their plain versions: sums rel 1e-4, gradients
+    normalised 2e-4; the fused step goes through both kernels."""
+    from gpe_tpu_torch.experiments.configs import EXPERIMENTS
+
+    spec = EXPERIMENTS["gravity_well_paper"].spec
+    batch = tprob.make_batch(spec, mode, device=cuda_device)
+    assert float(batch["x"][0, 0]) == 0.0 and abs(float(batch["base_val"][0])) < 1e-5
+    rng = np.random.default_rng(mode)
+    params = params_from_numpy(
+        [(rng.normal(0.0, 1.0 / np.sqrt(k), (k, m)), rng.normal(0.0, 0.1, m))
+         for k, m in zip(spec.layers[:-1], spec.layers[1:])], device=cuda_device)
+    phys = (spec.activation, spec.p, spec.kinetic, spec.nonlinearity)
+    args = (params, batch["x"], batch["V"], batch["w"], gamma, scale)
+    base = (batch["base_val"], batch["base_lap"])
+    got = k1.collocation_sums(*args, *base, *phys)
+    want = k1.collocation_sums_plain(*args, *base, *phys)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4)
+    cots = k1.sums_to_loss(got, batch["x"].shape[0], spec.norm_weight)[3]
+    grads, sums = k2.collocation_grads(*args, cots, *base, *phys)
+    pgrads, _ = k2.collocation_grads_plain(*args, cots, *base, *phys)
+    np.testing.assert_allclose(sums.cpu().numpy(), got.cpu().numpy(), rtol=1e-4)
+    _grads_close(grads, pgrads)
+    vag = tprob.make_fused_value_and_grad(spec, device=cuda_device, relaxed=False)
+    before = (k1.collocation_sums.launches, k2.collocation_grads.launches)
+    (total, aux), _ = vag(params, batch, gamma, scale)
+    assert (k1.collocation_sums.launches - before[0],
+            k2.collocation_grads.launches - before[1]) == (1, 1)
+    ref, raux = tprob.make_loss_fn(spec)(params, batch, gamma, scale)
+    np.testing.assert_allclose(float(aux["mu"]), float(raux["mu"]), rtol=1e-4)

@@ -77,6 +77,8 @@ def test_entry_points_without_device_raise_when_there_is_no_card(tmp_path):
         train_plpinn(spec, [0.0], epochs=2, pretrain_epochs=2)
 
     from gpe_tpu_torch.experiments import run
+    from gpe_tpu_torch.ops import geometry
+    from gpe_tpu_torch.physics.bases import airy_table
     from gpe_tpu_torch.validate import fdm, rotating
     from gpe_tpu_torch.validate.imaginary_time import imaginary_time_gpe
 
@@ -90,7 +92,13 @@ def test_entry_points_without_device_raise_when_there_is_no_card(tmp_path):
                  lambda: rotating.rotating_imaginary_time(V2, x, 1.0, 0.5, steps=2),
                  lambda: rotating.regrid_psi(V2.astype(complex), x, x),
                  lambda: run.main(["linear_1d_sanity", "--epochs", "1",
-                                   "--out", str(tmp_path)])):
+                                   "--out", str(tmp_path)]),
+                 lambda: run.main(["gpe2d_circle", "--epochs", "1",
+                                   "--out", str(tmp_path)]),
+                 lambda: run.main(["mode0_all_potentials", "--epochs", "1",
+                                   "--out", str(tmp_path)]),
+                 lambda: airy_table(),
+                 lambda: geometry.disk_points((0.0, 0.0), 1.0, 8)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert resolve_device("cpu").type == "cpu"

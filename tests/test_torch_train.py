@@ -237,24 +237,32 @@ def test_train_plpinn_2d_ramp_with_rebase():
 
 def test_configs_match_the_jax_registry():
     """Every registered config equals the JAX config of its name in every
-    field the two dataclasses share (the spec's dtype aside), and every
-    other JAX config is listed in WAITING with what it waits for."""
+    field the two dataclasses share (the spec's dtype aside), every one runs
+    on a branch the port's runner has, and every other JAX config is listed
+    in WAITING with what it waits for — none of them any more for a basis,
+    the ansatz, the disk, a loss term, a weighting or a runner branch."""
     from dataclasses import fields
 
     from gpe_tpu.experiments.configs import EXPERIMENTS as JEXP
     from gpe_tpu_torch.experiments.configs import WAITING
+    from gpe_tpu_torch.experiments.run import BRANCHES
 
     assert set(EXPERIMENTS) | set(WAITING) == set(JEXP)
     assert not set(EXPERIMENTS) & set(WAITING)
     assert {"harmonic_quick", "harmonic_negative_gamma", "harmonic_p4", "harmonic_p8",
             "harmonic_p16", "gpe1d_tf", "gpe2d_lattice", "harmonic_paper",
-            "linear_1d_sanity", "gpe2d_ground_state"} <= set(EXPERIMENTS)
+            "linear_1d_sanity", "gpe2d_ground_state", "box_paper", "gravity_well_paper",
+            "gpe2d_circle", "harmonic_self_adaptive", "gpe2d_anti_trivial",
+            "riesz_mode0", "mode0_all_potentials"} <= set(EXPERIMENTS)
+    for what in ("basis", "ansatz", "geometry", "gpe_terms", "self_adaptive",
+                 "fit branch", "cross-potential"):
+        assert not any(what in v for v in WAITING.values()), what
     cfg_fields = [f.name for f in fields(next(iter(EXPERIMENTS.values())))]
     assert cfg_fields == [f.name for f in fields(next(iter(JEXP.values())))]
     spec_fields = [f.name for f in fields(tprob.GPESpec) if f.name != "dtype"]
     for name, cfg in EXPERIMENTS.items():
         jcfg = JEXP[name]
-        assert jcfg.algorithm == "plpinn" and not jcfg.use_mesh
+        assert jcfg.algorithm in BRANCHES and not jcfg.use_mesh
         for f in cfg_fields:
             if f != "spec":
                 assert getattr(cfg, f) == getattr(jcfg, f), (name, f)
