@@ -47,6 +47,15 @@ port's three paths on the card:
    f32 μ; (d) the runner's `fit` branch on `gpe2d_circle` (10,000 disk
    points, [2,100,100,100,1] tanh, 200 of 3000 epochs), which launches no
    kernel.
+6. the method comparison at `harmonic_paper`'s shape: (a) `fit_ensemble`'s
+   fused route (R = 5 at γ = 20, R = 6 at γ = 0…100 per run; 100 steps
+   from pretrained params) against R single fits and, with the exact step,
+   against the plain route (torch.func), K3 timed at both; the LM step
+   with its CUDA-graph matvec against the op-by-op one; (b) the runner's
+   compare branch on `multirun_box_mode0`, `multirun_harmonic_mode0` and
+   `compare_harmonic_mode0` (300 epochs); (c) `paper_tables.run_family`
+   on `p3_harmonic` mode 0 (Δγ = 20, 300 epochs), its oracle against the
+   committed table's mu_ref.
 
 A kernel row's "ms" is device time: CUDA events around replays of a CUDA
 graph of one wrapper call; "call_ms" is back-to-back calls, host work
@@ -1176,6 +1185,285 @@ def phase_fit_circle(dev):
     return sec
 
 
+# the comparison phase (6): tests/test_torch_train.py's fit parity bounds
+# (loss rtol 1e-4, μ 1e-5). Two comparisons hold the loss at 1e-3: the fused
+# exact step against the plain route's autograd (the fused loss comes from
+# the four sums, whose pde term cancels digits; tests/test_torch_cuda.py),
+# and the per-run-γ ensemble against its single fits, whose γ = 0 run starts
+# at the exact base, where the loss-as-step LR kicks it around and the
+# batched GEMMs' round-off grows to 7.5e-4 in 100 steps (μ stays within
+# 1e-5)
+ENS_LOSS_RTOL, ENS_MU_RTOL, ENS_LOOSE_LOSS_RTOL = 1e-4, 1e-5, 1e-3
+ORACLE_CSV = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs",
+                          "comparison_results_p3_harmonic", "raw_comparison_results.csv")
+
+
+def _runs_counters():
+    from gpe_tpu_torch.kernels._common import LaunchCounter
+    return LaunchCounter(runs=True)
+
+
+def _close(name, got, want, rtol):
+    """Max relative difference of got from want; raises over rtol."""
+    import numpy as np
+    rel = np.abs(np.asarray(got) / np.asarray(want) - 1.0)
+    per_run = np.round(rel.max(axis=-1), 9).tolist()
+    log(f"  {name}: max rel {rel.max():.3e} (per run {per_run})")
+    if not rel.max() <= rtol:
+        raise AssertionError(f"{name}: max rel {rel.max():.3e} over {rtol:g}")
+    return float(rel.max())
+
+
+def phase_fit_ensemble(dev):
+    """(a) `fit_ensemble`'s fused route at `harmonic_paper`'s shape (4,000
+    points, [1,64,64,64,1]), 100 steps from params pretrained 300 steps
+    (seeds 42…47, per-run q-scales): R = 5 at γ = 20 and R = 6 at γ = 0, 20,
+    …, 100 per run, each with the default relaxed step against R single
+    `fit`s (K2); R = 6 also with the exact step against the plain route
+    (torch.func). Launches of each relaxed ensemble: K3 grads 100, K3 sums
+    1, no single-run launch. Then K3's device time per launch at both
+    shapes, on the ensemble's inputs."""
+    import torch
+    from gpe_tpu_torch.experiments.configs import EXPERIMENTS
+    from gpe_tpu_torch.kernels import fused_grad as k2
+    from gpe_tpu_torch.kernels import fused_residual as k1
+    from gpe_tpu_torch.models.mlp import init_mlp, run_slice, stack_runs
+    from gpe_tpu_torch.train.compare import _pretrain_perturbation
+    from gpe_tpu_torch.train.loop import fit, fit_ensemble
+    from gpe_tpu_torch.train.plpinn import ramp_optimizer
+    from gpe_tpu_torch.train.problem import (make_batch, make_fused_value_and_grad,
+                                             make_loss_fn)
+
+    cfg = EXPERIMENTS["harmonic_paper"]
+    spec = cfg.spec
+    batch = make_batch(spec, 0, device=dev)
+    loss_fn = make_loss_fn(spec)
+    relaxed = make_fused_value_and_grad(spec, device=dev)
+    seeds = []
+    for s in range(6):
+        p = init_mlp(spec.layers, "xavier_uniform",
+                     generator=torch.Generator().manual_seed(42 + s), device=dev)
+        seeds.append(_pretrain_perturbation(spec, p, batch, 0, 300, cfg.perturb_const))
+    kw = dict(epochs=100, tol=0.0, patience=10 ** 9, check_every=100)
+    counter = _runs_counters()
+    out, rows = {}, {}
+    for R, gammas in ((5, [20.0] * 5), (6, [20.0 * r for r in range(6)])):
+        label = "R5" if R == 5 else "R6_per_run_gamma"
+        pb = stack_runs([p for p, _ in seeds[:R]])
+        scales = [q for _, q in seeds[:R]]
+        counter.mark()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ens = fit_ensemble(loss_fn, ramp_optimizer(cfg.lr), pb, batch,
+                           gammas if R == 6 else 20.0, scales,
+                           value_and_grad_fn=relaxed, **kw)
+        end.record()
+        end.synchronize()
+        launches = counter.since()
+        step_ms = start.elapsed_time(end) / 100
+        want = {"fused_residual": 0, "fused_grad": 0, "fused_residual_runs": 1,
+                "fused_grad_runs": 100}
+        if launches != want:
+            raise AssertionError(f"fit_ensemble {label}: launches {launches}, want {want}")
+        singles = [fit(loss_fn, ramp_optimizer(cfg.lr), run_slice(pb, r), batch,
+                       gammas[r], scales[r], value_and_grad_fn=relaxed, **kw)
+                   for r in range(R)]
+        worst = [_close(f"{label} loss", ens.loss_history,
+                        [o.loss_history for o in singles],
+                        ENS_LOSS_RTOL if R == 5 else ENS_LOOSE_LOSS_RTOL),
+                 _close(f"{label} μ", ens.mu_history, [o.mu_history for o in singles],
+                        ENS_MU_RTOL)]
+        log(f"fit_ensemble {label} (relaxed): {step_ms:.4f} ms/step, launches {launches}; "
+            f"vs {R} single fits max rel loss {worst[0]:.2e}, μ {worst[1]:.2e}; μ_best "
+            f"{[round(float(m), 7) for m in ens.mu_best]}")
+        rows[label] = {"step_ms": step_ms, "vs_single_fits": worst}
+        if R == 6:
+            exact = make_fused_value_and_grad(spec, device=dev, relaxed=False)
+            fused = fit_ensemble(loss_fn, ramp_optimizer(cfg.lr), pb, batch, gammas,
+                                 scales, value_and_grad_fn=exact, **kw)
+            start.record()
+            plain = fit_ensemble(loss_fn, ramp_optimizer(cfg.lr), pb, batch, gammas,
+                                 scales, **kw)
+            end.record()
+            end.synchronize()
+            plain_ms = start.elapsed_time(end) / 100
+            mu_rel = _close("exact vs plain route μ", fused.mu_history, plain.mu_history,
+                            ENS_MU_RTOL)
+            loss_rel = _close("exact vs plain route loss", fused.loss_history,
+                              plain.loss_history, ENS_LOOSE_LOSS_RTOL)
+            log(f"fit_ensemble {label}: exact fused vs plain route (torch.func, "
+                f"{plain_ms:.4f} ms/step) max rel μ {mu_rel:.2e}, loss {loss_rel:.2e}")
+            rows[label].update(plain_route_step_ms=plain_ms,
+                               exact_vs_plain=[mu_rel, loss_rel])
+        # K3's device time per launch on this ensemble's inputs
+        kk = dict(activation=spec.activation, p=spec.p, kinetic=spec.kinetic,
+                  nonlinearity=spec.nonlinearity)
+        g = torch.tensor(gammas, device=dev)
+        sc = torch.tensor(scales, device=dev)
+        args = (ens.params, batch["x"], batch["V"], batch["w"], g, sc)
+        base = (batch["base_val"], batch["base_lap"])
+        sums = k1.collocation_sums_runs(*args, *base, **kk)
+        cots = k1.sums_to_loss(sums, batch["x"].shape[0], spec.norm_weight)[3]
+        s_ms, s_call = kernel_ms(lambda: k1.collocation_sums_runs(*args, *base, **kk), 50)
+        g_ms, g_call = kernel_ms(
+            lambda: k2.collocation_grads_runs(*args, cots, *base, **kk), 50)
+        log(f"K3 at {label}: sums {s_ms:.4f} ms (per call {s_call:.4f}), grads "
+            f"{g_ms:.4f} ms (per call {g_call:.4f})")
+        out[label] = {"fused_residual_runs": {"ms": s_ms, "call_ms": s_call,
+                                              "launches": launches["fused_residual_runs"]},
+                      "fused_grad_runs": {"ms": g_ms, "call_ms": g_call,
+                                          "launches": launches["fused_grad_runs"]}}
+    rows["lm_step_s"] = _lm_step_s(spec, batch, run_slice(ens.params, 1), scales[1])
+    rows["pretrain_step_ms"] = _pretrain_step_ms(spec, batch)
+    return out, rows
+
+
+def _pretrain_step_ms(spec, batch, steps: int = 300):
+    """ms per pretraining Adam step at this shape, replayed from a CUDA
+    graph and launched op by op, in one call; the params must agree to
+    rtol 1e-5."""
+    import torch
+    from gpe_tpu_torch.models.mlp import init_mlp, mlp_apply
+    from gpe_tpu_torch.train.pretrain import _adam_steps
+
+    params = init_mlp(spec.layers, "xavier_uniform",
+                      generator=torch.Generator().manual_seed(7), device=batch["x"].device)
+    out, got = {}, {}
+    for graph in (True, False):
+        leaves = [t.clone().requires_grad_(True) for pair in params for t in pair]
+        pairs = tuple((leaves[i], leaves[i + 1]) for i in range(0, len(leaves), 2))
+        mse = lambda: torch.mean((mlp_apply(pairs, batch["x"], spec.activation)
+                                  - batch["base_val"]) ** 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _adam_steps(mse, leaves, 1e-3, steps, graph)
+        torch.cuda.synchronize()
+        out["graph" if graph else "eager"] = 1e3 * (time.perf_counter() - t0) / steps
+        got[graph] = torch.cat([t.detach().reshape(-1) for t in leaves])
+    rel = float(((got[True] - got[False]).abs() / got[False].abs().clamp_min(1e-6)).max())
+    log(f"pretrain Adam step: graphed {out['graph']:.4f} ms, op by op {out['eager']:.4f} "
+        f"ms; params max rel {rel:.2e}")
+    if not rel <= 1e-5:
+        raise AssertionError(f"the graphed Adam steps left the op-by-op ones: {rel:.3e}")
+    return out
+
+
+def _lm_step_s(spec, batch, params, scale, steps: int = 5):
+    """Seconds per LM step (80 CG iterations at most) at γ = 20 from trained
+    params, each CG matvec replayed from a CUDA graph and launched op by op,
+    in one call; the two loss histories must agree to rtol 1e-6."""
+    import numpy as np
+    import torch
+    from gpe_tpu_torch.train.gauss_newton import make_gpe_residual_fn, make_lm_solver
+
+    out, hist = {}, {}
+    for graph in (True, False):
+        lm = make_lm_solver(make_gpe_residual_fn(spec), params, steps=steps,
+                            cg_iters=80, graph=graph)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist[graph] = lm(params, batch, 20.0, scale).loss_history
+        torch.cuda.synchronize()
+        out["graph" if graph else "eager"] = (time.perf_counter() - t0) / steps
+    rel = float(np.max(np.abs(hist[True] / hist[False] - 1.0)))
+    log(f"LM step (γ=20, ≤ 80 CG matvecs): graphed {out['graph']:.4f} s, op by op "
+        f"{out['eager']:.4f} s; loss histories max rel {rel:.2e}")
+    if not rel <= 1e-6:
+        raise AssertionError(f"the graphed LM left the op-by-op one: {rel:.3e}")
+    return out
+
+
+def phase_compare_configs(dev):
+    """(b) The runner's compare branch on its three configs, 300 epochs,
+    into a temporary --out (each seed still pretrains 2000 steps, as the
+    JAX runner does): `multirun_box_mode0` |μ_median − π²| < 1e-3 for
+    pl_pinn and no launch (hard BC); `multirun_harmonic_mode0` K3 grads
+    once per step, 300 per method, K3 sums once per method; and
+    `compare_harmonic_mode0` K2 once per step for both methods, K1 once per
+    fit. Returns each config's launches and seconds."""
+    import tempfile
+
+    from gpe_tpu_torch.experiments import run
+
+    launches, seconds = {}, {}
+    with tempfile.TemporaryDirectory() as out:
+        for name in ("multirun_box_mode0", "multirun_harmonic_mode0",
+                     "compare_harmonic_mode0"):
+            t0 = time.perf_counter()
+            rc = run.main([name, "--train", "--epochs", "300", "--out", out])
+            seconds[name] = time.perf_counter() - t0
+            with open(os.path.join(out, name, "summary.json")) as f:
+                rec = json.load(f)
+            counts = rec["launches"]
+            log(f"compare branch {name}: rc {rc}, {seconds[name]:.2f} s; record "
+                f"{json.dumps(rec)}")
+            if rc != 0:
+                raise AssertionError(f"{name}: rc {rc}")
+            if name == "compare_harmonic_mode0":
+                launches[name] = counts
+                want = {"fused_residual": 2, "fused_grad": 600, "fused_residual_runs": 0,
+                        "fused_grad_runs": 0}
+                if counts != want or not all(math.isfinite(rec[m]["mu"])
+                                             for m in ("pl_pinn", "vanilla")):
+                    raise AssertionError(f"{name}: launches {counts}, want {want}; {rec}")
+                continue
+            launches[name] = {k: sum(c[k] for c in counts.values())
+                              for k in counts["pl_pinn"]}
+            if name == "multirun_box_mode0":
+                err = abs(rec["pl_pinn"]["mu_median"] - math.pi ** 2)
+                log(f"  multirun_box_mode0: |μ_median − π²| = {err:.3e}")
+                if not err < 1e-3 or any(launches[name].values()):
+                    raise AssertionError(f"{name}: err {err}, launches {counts}")
+            else:
+                for m, c in counts.items():
+                    if c != {"fused_residual": 0, "fused_grad": 0,
+                             "fused_residual_runs": 1, "fused_grad_runs": 300}:
+                        raise AssertionError(f"{name} {m}: launches {c}")
+    return launches, seconds
+
+
+def phase_run_family(dev):
+    """(c) `paper_tables.run_family("p3_harmonic")` cut to mode 0, 300
+    epochs and Δγ = 20 (the ramp is the six checkpoints), into a temporary
+    directory: the oracle equal to the committed table's mu_ref (atol
+    1e-14), PL-PINN's μ(0) within 1e-3 of 1, every method's row at all six
+    γ; wall time and launches per method printed."""
+    import csv
+    import tempfile
+
+    from gpe_tpu_torch.experiments import paper_tables
+
+    with open(ORACLE_CSV, newline="") as f:
+        ref = {float(r["Gamma"]): float(r["mu_ref"]) for r in csv.DictReader(f)
+               if int(r["Mode"]) == 0}
+    with tempfile.TemporaryDirectory() as out:
+        summary = paper_tables.run_family("p3_harmonic", out, epochs=300, ramp_step=20.0,
+                                          modes_filter=(0,), verbose=True, device=dev)
+        with open(os.path.join(out, "raw_comparison_results.csv"), newline="") as f:
+            raw = list(csv.DictReader(f))
+    log(f"run_family p3_harmonic mode 0: wall {summary['wall_s']} s; seconds "
+        f"{json.dumps(summary['seconds'])}; launches {json.dumps(summary['launches'])}")
+    gammas = sorted(ref)
+    worst = max(abs(float(r["mu_ref"]) - ref[float(r["Gamma"])]) for r in raw)
+    rows = {m: sorted(float(r["Gamma"]) for r in raw if r["Method"] == m)
+            for m in paper_tables.METHOD_ORDER}
+    pl0 = [float(r["mu"]) for r in raw if r["Method"] == "PL-PINN"
+           and float(r["Gamma"]) == 0.0][0]
+    log(f"  oracle vs the committed mu_ref: max |Δ| {worst:.3e}; PL-PINN μ(0) "
+        f"{pl0:.7f}, |μ(0) − 1| {abs(pl0 - 1.0):.3e}")
+    for r in raw:
+        log(f"  {r['Method']:>20s} γ={float(r['Gamma']):5.1f}: μ {float(r['mu']):.7f} "
+            f"err {float(r['Abs Error']):.3e}")
+    if not worst <= 1e-14:
+        raise AssertionError(f"the oracle is {worst:.3e} off the committed mu_ref")
+    if not abs(pl0 - 1.0) < 1e-3:
+        raise AssertionError(f"PL-PINN μ(0) = {pl0} not within 1e-3 of 1")
+    if any(g != gammas for g in rows.values()):
+        raise AssertionError(f"a method lacks a checkpoint row: {rows}")
+    return summary
+
+
 def main() -> int:
     try:
         import torch
@@ -1241,14 +1529,34 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_fit_circle(dev)
     phases["fit_circle"] = time.perf_counter() - t0
-    by_path = {"cross_potential": cross_launches, "gravity_well_packed": gw_launches}
+    t0 = time.perf_counter()
+    ens_k3, ens_rows = phase_fit_ensemble(dev)
+    phases["fit_ensemble"] = time.perf_counter() - t0
+    counter = _runs_counters()
+    for fn in counter.kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    config_launches, config_s = phase_compare_configs(dev)
+    phases["compare_configs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    family = phase_run_family(dev)
+    phases["run_family"] = time.perf_counter() - t0
+    comparison = {k: fn.launches for k, fn in counter.kernels.items()}
+    log(f"comparison path launches {comparison}; configs {json.dumps(config_launches)}")
+    by_path = {"cross_potential": cross_launches, "gravity_well_packed": gw_launches,
+               "comparison": comparison}
     for k in kernels:
         k["launches"] = launches[k["name"]]
         for path, counts in by_path.items():
             if k["name"] in counts:
                 k.setdefault("launches_by_path", {})[path] = counts[k["name"]]
+        if k["name"] in ("fused_residual_runs", "fused_grad_runs"):
+            k["fit_ensemble"] = {label: v[k["name"]] for label, v in ens_k3.items()}
     log(json.dumps({"steps_ms": steps, "oracle_s": oracle_s, "polish_x64_s": x64_s,
-                    "run_main_s": run_s, "families_phase_s": phases}))
+                    "run_main_s": run_s, "families_phase_s": phases,
+                    "fit_ensemble": ens_rows, "compare_configs_s": config_s,
+                    "run_family": {k: family[k] for k in ("wall_s", "seconds",
+                                                          "launches")}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

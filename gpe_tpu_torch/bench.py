@@ -207,7 +207,7 @@ def _train_ms(vag, params, batch, iters, device, stateful=False):
     and the loss of the first step."""
     from gpe_tpu_torch.train.optimizers import ClipAdam, _leaves, _pairs
 
-    opt = ClipAdam(lambda u, _: torch._foreach_mul(u, -LR), clip=1.0)
+    opt = ClipAdam(clip=1.0, count_scale=lambda _: -LR)
     st = {"p": params, "opt": opt.init(params)}
     if stateful:
         st["vs"] = vag.init_state(params, batch, GAMMA, SCALE)

@@ -2,8 +2,8 @@
 
 `EXPERIMENTS` holds every configuration of the JAX registry whose parts the
 port has (bases, potentials, ansatz, loss terms, trainer, runner branch):
-the `plpinn`, `fit` and `cross_potential` ones. `WAITING` names each other
-JAX configuration and what it waits for, and `experiments/run.py` raises
+the `plpinn`, `fit`, `cross_potential` and `compare` ones. `WAITING` names
+each other JAX configuration and what it waits for, and `experiments/run.py` raises
 NotImplementedError with that text.
 """
 from __future__ import annotations
@@ -89,6 +89,25 @@ for _p in (4, 8, 16):
         name=f"harmonic_p{_p}",
         spec=replace(_PAPER_1D, p=float(_p)), gamma_values=_gammas(201), modes=(0,)))
 
+# --- the method comparison (the `compare` branch) ---------------------------
+
+_register(ExperimentConfig(
+    name="compare_harmonic_mode0",               # plot_harmonic_potential_at_ground_state.py
+    spec=_PAPER_1D, algorithm="compare", gamma_values=(100.0,), modes=(0,)))
+
+_register(ExperimentConfig(
+    name="multirun_harmonic_mode0",              # the multi-seed protocol, 5 seeds, γ=20
+    spec=_PAPER_1D, algorithm="compare", gamma_values=(20.0,), modes=(0,),
+    n_runs=5))
+
+_register(ExperimentConfig(
+    name="multirun_box_mode0",                   # ..._multiple_runs.py (5 seeds)
+    # PL against vanilla at γ=0, where the 1e-11 / 1e-5 success thresholds
+    # of the reference's multirun protocol apply
+    spec=replace(_PAPER_1D, lb=0.0, ub=1.0, potential="box", basis="box",
+                 hard_bc=True),
+    algorithm="compare", gamma_values=(0.0,), modes=(0,), n_runs=5))
+
 # --- BASELINE.json configs ---------------------------------------------------
 
 _register(ExperimentConfig(
@@ -166,7 +185,6 @@ _register(ExperimentConfig(
     algorithm="cross_potential", gamma_values=_gammas(11, 1.0),
     modes=(0,), epochs=2001))
 
-_MULTIRUN = "the multi-run protocol (gpe_tpu.train.compare.train_multiple_runs)"
 _BETA = "the β-sweep trainer (gpe_tpu.train.beta_sweep.train_beta_sweep)"
 _DEFLATION = "the deflation trainer (gpe_tpu.train.deflation.train_deflation)"
 _HELMHOLTZ = "the Helmholtz trainer (gpe_tpu.helmholtz.problem.train_helmholtz)"
@@ -177,9 +195,6 @@ WAITING = {
     "plpinn_sharded_dp": "collocation-sharded training (gpe_tpu.parallel.make_mesh, "
                          "train_plpinn(mesh=))",
     "two_stage_beta_gamma": "the two-stage trainer (gpe_tpu.train.two_stage.train_two_stage)",
-    "compare_harmonic_mode0": "the method comparison (gpe_tpu.train.compare.compare_methods)",
-    "multirun_harmonic_mode0": _MULTIRUN,
-    "multirun_box_mode0": _MULTIRUN,
     "vary_beta_harmonic": _BETA,
     "vary_beta_gravity_well": _BETA,
     "vary_beta_box_gaussian": _BETA,

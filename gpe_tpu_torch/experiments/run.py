@@ -1,5 +1,5 @@
 """CLI experiment runner, port of `gpe_tpu/experiments/run.py`'s `plpinn`,
-`fit` and `cross_potential` branches:
+`fit`, `cross_potential` and `compare` branches:
 
     python -m gpe_tpu_torch.experiments.run <name> [--train] [--epochs N]
         [--gammas G ...] [--modes M ...] [--pretrain N] [--seed S]
@@ -20,12 +20,22 @@
   box, gravity well, Gaussian trap), each trained or loaded from
   `<out>/<name>/<family>_bundle.pkl`; one JSON line per family with the JAX
   record's keys (`potential`, `mu_final`, `gamma0_final_loss`).
+- `compare`: PL-PINN against the vanilla PINN at each γ of the config.
+  With n_runs > 1 the multi-seed protocol (`train_multiple_runs`, success
+  thresholds PL 1e-11 and vanilla 1e-5): `<out>/<name>/multirun_stats.json`
+  keyed by method (by `<method>_g<γ>` when the config has several γ), and
+  one JSON line of each key's `mu_median`/`mu_std`; else `compare_methods`,
+  one JSON line per γ (`gamma`, each method's `mu` and `loss`). Each
+  method pretrains its full 2000 steps, as in the JAX runner, whatever
+  `--pretrain` says.
 
 Every record adds `seconds` (the wall time of each part) and, on the card,
 `launches`: the f32 K1 and K2 launches of what it records
 (`kernels.fused_residual.collocation_sums.launches`,
-`kernels.fused_grad.collocation_grads.launches`). `<out>/<name>/summary.json`
-holds the records as the JAX runner writes them (one record, or the list).
+`kernels.fused_grad.collocation_grads.launches`) and, for `compare`, of
+their run mode (K3: `collocation_sums_runs`, `collocation_grads_runs`).
+`<out>/<name>/summary.json` holds the records as the JAX runner writes them
+(one record, or the list).
 
 `--out` defaults to `runs_torch`; the port never writes under `runs/`,
 which holds the JAX package's artifacts. The run is on the CUDA card unless
@@ -43,6 +53,8 @@ import os
 import sys
 import time
 
+from gpe_tpu_torch.kernels._common import LaunchCounter
+
 ORACLE_GRID = 384
 ORACLE_TAU = 2e-3
 ORACLE_RICHARDSON = 2
@@ -54,22 +66,6 @@ def _write_summary(out_dir, records):
     with open(os.path.join(out_dir, "summary.json"), "w") as f:
         json.dump(records if len(records) != 1 else records[0], f, indent=2,
                   default=str)
-
-
-class _Launches:
-    """The f32 K1 and K2 launch counters, read as differences from a mark."""
-
-    def __init__(self):
-        from gpe_tpu_torch.kernels import fused_grad, fused_residual
-        self.kernels = {"fused_residual": fused_residual.collocation_sums,
-                        "fused_grad": fused_grad.collocation_grads}
-        self.mark()
-
-    def mark(self):
-        self.before = {k: fn.launches for k, fn in self.kernels.items()}
-
-    def since(self) -> dict:
-        return {k: fn.launches - self.before[k] for k, fn in self.kernels.items()}
 
 
 def oracle_mu(spec, gamma: float, device=None) -> float:
@@ -124,7 +120,7 @@ def _run_plpinn(cfg, args, dev, out_dir, emit):
     from gpe_tpu_torch.io import load_bundle, save_bundle
 
     bundle_path = os.path.join(out_dir, "bundle.pkl")
-    launches = _Launches()
+    launches = LaunchCounter()
     t0 = time.time()
     polished, seconds = None, {}
     if args.train or not os.path.exists(bundle_path):
@@ -172,7 +168,7 @@ def _run_fit(cfg, dev, emit):
     loss_fn = make_loss_fn(spec)
     params = init_params(spec, torch.Generator().manual_seed(cfg.seed), device=dev)
     opt = make_optimizer("adam", cfg.lr, clip_norm=1.0)
-    launches = _Launches()
+    launches = LaunchCounter()
     for g in cfg.gamma_values:
         launches.mark()
         t0 = time.perf_counter()
@@ -195,7 +191,7 @@ def _run_fit(cfg, dev, emit):
 def _run_cross_potential(cfg, args, dev, out_dir, emit):
     from gpe_tpu_torch.io import load_bundle, save_bundle
 
-    launches = _Launches()
+    launches = LaunchCounter()
     for label, fspec in cross_potential_families(cfg.spec).items():
         bpath = os.path.join(out_dir, f"{label}_bundle.pkl")
         launches.mark()
@@ -215,7 +211,55 @@ def _run_cross_potential(cfg, args, dev, out_dir, emit):
         emit(record)
 
 
-BRANCHES = ("plpinn", "fit", "cross_potential")
+# the reference's success thresholds of the multi-seed protocol
+MULTIRUN_THRESHOLDS = {"pl_pinn": 1e-11, "vanilla": 1e-5}
+
+
+def _run_compare(cfg, dev, out_dir, emit):
+    from gpe_tpu_torch.train.compare import compare_methods, train_multiple_runs
+
+    launches = LaunchCounter(runs=True)
+    kw = dict(epochs=cfg.epochs, tol=cfg.tol, patience=cfg.patience, device=dev)
+    if cfg.n_runs > 1:
+        stats, seconds, counts = {}, {}, {}
+        for g in cfg.gamma_values:
+            for m, thr in MULTIRUN_THRESHOLDS.items():
+                # key by (method, γ): a bare method key would keep only the
+                # last γ's statistics of a multi-γ config
+                key = f"{m}_g{g:g}" if len(cfg.gamma_values) > 1 else m
+                launches.mark()
+                t0 = time.perf_counter()
+                stats[key] = train_multiple_runs(
+                    cfg.spec, g, n_runs=cfg.n_runs, use_perturbation=(m == "pl_pinn"),
+                    success_threshold=thr, **kw)
+                seconds[key] = time.perf_counter() - t0
+                counts[key] = launches.since()
+        summary = {k: {"mu_median": v["mu_median"], "mu_std": v["mu_std"],
+                       "mu_runs": [float(x) for x in v["mu_runs"]],
+                       "epochs_run": [int(x) for x in v["epochs_run"]]}
+                   for k, v in stats.items()}
+        with open(os.path.join(out_dir, "multirun_stats.json"), "w") as f:
+            json.dump(summary, f, indent=2)
+        record = {k: {"mu_median": v["mu_median"], "mu_std": v["mu_std"]}
+                  for k, v in summary.items()}
+        record["seconds"] = seconds
+        if dev.type == "cuda":
+            record["launches"] = counts
+        emit(record)
+        return
+    for g in cfg.gamma_values:
+        launches.mark()
+        t0 = time.perf_counter()
+        out = compare_methods(cfg.spec, g, **kw)
+        record = {"gamma": g, **{m: {"mu": d["mu"], "loss": d["best_loss"]}
+                                 for m, d in out.items()},
+                  "seconds": {"compare": time.perf_counter() - t0}}
+        if dev.type == "cuda":
+            record["launches"] = launches.since()
+        emit(record)
+
+
+BRANCHES = ("plpinn", "fit", "cross_potential", "compare")
 
 
 def main(argv=None):
@@ -275,6 +319,8 @@ def main(argv=None):
         _run_plpinn(cfg, args, dev, out_dir, emit)
     elif cfg.algorithm == "fit":
         _run_fit(cfg, dev, emit)
+    elif cfg.algorithm == "compare":
+        _run_compare(cfg, dev, out_dir, emit)
     else:
         _run_cross_potential(cfg, args, dev, out_dir, emit)
     _write_summary(out_dir, records)

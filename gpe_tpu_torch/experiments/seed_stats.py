@@ -5,7 +5,9 @@ Runs the PL-PINN and PL-PINN-R γ-continuation ramps for N seeds (default 6,
 at least the reference's 5) per mode as one seed ensemble:
 `train_plpinn_modes_packed(modes=[m]*N, seed=s0)` gives run i the seed
 s0 + 1000·i, the same base and protocol, and all N ramps advance together
-in the run-mode kernels.
+in the run-mode kernels. Specs the run-mode kernels cannot take (the
+hard-BC box and Gaussian families) train the same seeds as one
+`fit_ensemble` (`_train_seeds_vmapped`).
 
 Per (family, mode, method): per-checkpoint-γ per-seed μ and |Δμ| against
 the committed float64 oracle values (the family's
@@ -46,12 +48,71 @@ def _oracle_from_csv(out_dir) -> dict:
     return ref
 
 
-def _train_seeds_vmapped(*args, **kwargs):
-    """The seed ensemble of specs the run-mode kernels cannot take (hard-BC
-    box/gaussian) needs the vmapped ensemble trainer."""
-    raise NotImplementedError(
-        "the vmapped seed ensemble waits for gpe_tpu.train.loop.fit_ensemble, "
-        "not ported yet")
+def _train_seeds_vmapped(spec, ramp, mode, n_seeds, base_seed, epochs, patience,
+                         lr_mode, rebase, perturb_const: float = 0.01,
+                         check_every: int = 512, verbose: bool = False,
+                         device=None) -> dict:
+    """train_plpinn's ramp for the seed ensemble of a spec the run-mode
+    kernels cannot take (hard-BC box/Gaussian), every seed a run of
+    `fit_ensemble`: seed i starts from base_seed + 1000·i (the packed
+    path's seeds), pretrain → normal_const → q-scale, warm start, tol = 0
+    with best-restore, and with rebase=True each run's own incremental-base
+    fold (plpinn._rebase, its generator (base_seed + 1000·i)·1_000_003 + γ
+    index) carried through `per_run_batch`. As in the JAX package the
+    ensemble steps by autograd of the loss (fit_ensemble's plain route).
+    Returns {γ: [μ_best per seed]}."""
+    import torch
+
+    from gpe_tpu_torch.models import mlp
+    from gpe_tpu_torch.models.mlp import run_slice, stack_runs
+    from gpe_tpu_torch.train.loop import fit_ensemble
+    from gpe_tpu_torch.train.plpinn import _generator, _rebase, ramp_optimizer
+    from gpe_tpu_torch.train.pretrain import pretrain_to_base
+    from gpe_tpu_torch.train.problem import base_triple, make_batch, make_loss_fn
+
+    dev = resolve_device(device)
+    batch = make_batch(spec, mode, device=dev)
+    loss_fn = make_loss_fn(spec)
+    target = base_triple(spec, mode, batch["x"]).value
+    params_list, scales = [], []
+    for i in range(n_seeds):
+        p = mlp.init_mlp(spec.layers, "xavier_uniform",
+                         generator=_generator(base_seed + 1000 * i),
+                         dtype=spec.dtype, device=dev)
+        p, _ = pretrain_to_base(p, batch["x"], target, spec.activation,
+                                epochs=2000, lr=1e-3)
+        with torch.no_grad():
+            const = float(torch.max(mlp.mlp_apply(p, batch["x"], spec.activation)))
+        scales.append(perturb_const / const)
+        params_list.append(p)
+    params_batch = stack_runs(params_list)
+    keys = [k for k in ("base_val", "base_grad", "base_lap", "base_bval",
+                        "base_val_reflect") if k in batch]
+    prb = {k: torch.stack([batch[k]] * n_seeds) for k in keys} if rebase else None
+    optimizer = ramp_optimizer(1e-3, lr_mode)
+    out = {}
+    for gi, gamma in enumerate(ramp):
+        ens = fit_ensemble(loss_fn, optimizer, params_batch, batch, gamma, scales,
+                           epochs=epochs, tol=0.0, patience=patience,
+                           check_every=check_every, per_run_batch=prb)
+        params_batch = ens.params
+        out[float(gamma)] = [float(m) for m in ens.mu_best]
+        if verbose:
+            print(f"  γ={gamma:g}: μ=" + " ".join(f"{m:.5f}" for m in out[float(gamma)]),
+                  flush=True)
+        if rebase:
+            new_p, new_prb = [], {k: [] for k in prb}
+            for r in range(n_seeds):
+                batch_r, p_r = _rebase(
+                    spec, dict(batch, **{k: v[r] for k, v in prb.items()}),
+                    run_slice(params_batch, r), scales[r],
+                    _generator((base_seed + 1000 * r) * 1_000_003 + gi))
+                for k in new_prb:
+                    new_prb[k].append(batch_r[k])
+                new_p.append(p_r)
+            params_batch = stack_runs(new_p)
+            prb = {k: torch.stack(v) for k, v in new_prb.items()}
+    return out
 
 
 def _write(out: dict, path: str) -> None:
@@ -96,19 +157,22 @@ def run_seed_stats(family: str, modes=None, n_seeds: int = 6,
         per_mode = {}
         for method, rebase in (("PL-PINN", False), ("PL-PINN-R", True)):
             t1 = time.time()
-            if not packable:
-                _train_seeds_vmapped(spec, ramp, mode, n_seeds, base_seed)
-            res = train_plpinn_modes_packed(
-                spec, ramp, modes=[mode] * n_seeds, epochs=epochs, tol=0.0,
-                patience=patience, seed=base_seed, keep_params=False,
-                rebase=rebase, lr_mode=lr_mode, device=dev)
-            # mu_table[mode] lists the runs flattened in ramp order:
-            # [(γ0, s0), (γ0, s1), …, (γ0, sN-1), (γ1, s0), …]
-            flat = res.mu_table[mode]
-            assert len(flat) == len(ramp) * n_seeds
-            mu_by_gamma = {float(g): [m for _, m in
-                                      flat[gi * n_seeds:(gi + 1) * n_seeds]]
-                           for gi, g in enumerate(ramp)}
+            if packable:
+                res = train_plpinn_modes_packed(
+                    spec, ramp, modes=[mode] * n_seeds, epochs=epochs, tol=0.0,
+                    patience=patience, seed=base_seed, keep_params=False,
+                    rebase=rebase, lr_mode=lr_mode, device=dev)
+                # mu_table[mode] lists the runs flattened in ramp order:
+                # [(γ0, s0), (γ0, s1), …, (γ0, sN-1), (γ1, s0), …]
+                flat = res.mu_table[mode]
+                assert len(flat) == len(ramp) * n_seeds
+                mu_by_gamma = {float(g): [m for _, m in
+                                          flat[gi * n_seeds:(gi + 1) * n_seeds]]
+                               for gi, g in enumerate(ramp)}
+            else:   # hard-BC specs (box/Gaussian): the fit_ensemble seed ensemble
+                mu_by_gamma = _train_seeds_vmapped(
+                    spec, ramp, mode, n_seeds, base_seed, epochs, patience,
+                    lr_mode, rebase, device=dev)
             rows = []
             per_seed_errs = np.zeros((n_seeds, len(cps)))
             for ci, g in enumerate(cps):

@@ -1,5 +1,6 @@
 """Host-side helpers shared by the kernel wrappers: argument checks, the
-flat parameter packing, and the codes the C entry points take."""
+flat parameter packing, the codes the C entry points take, and the launch
+counters read as differences (`LaunchCounter`)."""
 from __future__ import annotations
 
 import ctypes
@@ -10,6 +11,28 @@ MAXW = 128                   # widest layer the kernels take (csrc/common.cuh)
 MAX_LAYERS = 8
 ACT_CODES = {"tanh": 0, "shifted_tanh": 1, "sin": 2}
 NONLIN_CODES = {"abs_power": 0, "power": 1}
+
+
+class LaunchCounter:
+    """The f32 launch counters of K1 and K2 (`collocation_sums.launches`,
+    `collocation_grads.launches`) and, with runs=True, of their run mode
+    (K3: `collocation_sums_runs`, `collocation_grads_runs`), read as
+    differences from the last `mark()`."""
+
+    def __init__(self, runs: bool = False):
+        from gpe_tpu_torch.kernels import fused_grad, fused_residual
+        self.kernels = {"fused_residual": fused_residual.collocation_sums,
+                        "fused_grad": fused_grad.collocation_grads}
+        if runs:
+            self.kernels.update(fused_residual_runs=fused_residual.collocation_sums_runs,
+                                fused_grad_runs=fused_grad.collocation_grads_runs)
+        self.mark()
+
+    def mark(self):
+        self.before = {k: fn.launches for k, fn in self.kernels.items()}
+
+    def since(self) -> dict:
+        return {k: fn.launches - self.before[k] for k, fn in self.kernels.items()}
 
 
 def kernel_supports(layers, activation: str) -> bool:

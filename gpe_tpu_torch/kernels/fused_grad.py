@@ -225,7 +225,12 @@ def make_value_and_grad(layers, activation: str = "tanh", p: float = 3.0,
     shared ((n,), (B,)) or per run ((R, n), (R, B)); total and every aux entry
     are (R,), the gradient is run-stacked, the boundary objective is
     Σ_r mean_r(bv²) with the per-run means in aux, and the relaxed state
-    holds (R, 4) sums. Each run's results are those of its own vag."""
+    holds (R, 4) sums. Each run's results are those of its own vag.
+
+    A single-run vag carries its run-mode twin, built with the same relaxed
+    settings, as `vag.run_axis`: an ensemble trainer (`loop.fit_ensemble`)
+    steps R runs of it in one launch where the JAX package vmaps the
+    single-run vag."""
     if layers[-1] != 1:
         raise ValueError("scalar-output nets only")
     kw = dict(activation=activation, p=p, kinetic=kinetic,
@@ -274,8 +279,16 @@ def make_value_and_grad(layers, activation: str = "tanh", p: float = 3.0,
         cgrads, _ = _grads(params, batch, gamma, scale, cots)
         return _finish(params, batch, scale, sums, cgrads)
 
+    def with_twin(fn):
+        if not runs:
+            fn.run_axis = make_value_and_grad(
+                layers, activation, p, kinetic, nonlinearity, bc_weight,
+                norm_weight, delayed, refresh_every, extrapolate, exact_until,
+                fresh_values, runs=True)
+        return fn
+
     if not delayed:
-        return vag
+        return with_twin(vag)
 
     def _value_sums(params, x, w, scale, base_val):
         """Exact (S₂, S₃) = (Σu², Σu²w) from a value-only plain forward."""
@@ -307,4 +320,4 @@ def make_value_and_grad(layers, activation: str = "tanh", p: float = 3.0,
 
     vag_relaxed.stateful = True
     vag_relaxed.init_state = init_state
-    return vag_relaxed
+    return with_twin(vag_relaxed)

@@ -8,6 +8,9 @@ with J the Jacobian of the full residual vector. JᵀJ·v = vjp(jvp(v)) with
 torch.func on a flat parameter vector — no J is formed. The CG solve follows
 jax.scipy.sparse.linalg.cg: x₀ = 0, stop when ‖r‖² ≤ (1e-5)²‖b‖² or after
 `cg_iters` iterations. ‖r‖² of the residual equals the fit() total loss.
+On a CUDA device each CG matvec replays a CUDA graph of the same jvp and
+vjp, captured once per solver call: the card runs the same kernels
+without the host's cost of launching each of the many small ones.
 """
 from __future__ import annotations
 
@@ -78,12 +81,52 @@ def cg(matvec: Callable, b: torch.Tensor, maxiter: int,
     return x
 
 
+def _graphed_normal_matvec(rflat: Callable, theta: torch.Tensor) -> Callable:
+    """A CUDA graph of v ↦ Jᵀ(J v) + c·v, J the Jacobian of rflat at a
+    point. Returns at(θ, c) -> matvec: at sets the point and the damping c,
+    matvec(v) copies v in and replays the graph. Its result is the graph's
+    output buffer, overwritten by the next replay."""
+    th = theta.detach().clone()
+    v = torch.zeros_like(th)
+    c = torch.zeros((), dtype=th.dtype, device=th.device)
+
+    def body():
+        _, jv = jvp(rflat, (th,), (v,))
+        _, vjp_fn = vjp(rflat, th)
+        return vjp_fn(jv)[0] + c * v
+
+    main = torch.cuda.current_stream(th.device)
+    side = torch.cuda.Stream(device=th.device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        for _ in range(2):                # lazy library set-up outside the capture
+            body()
+    main.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = body()
+
+    def at(theta, lam_curv):
+        th.copy_(theta)
+        c.copy_(lam_curv)
+
+        def matvec(p):
+            v.copy_(p)
+            graph.replay()
+            return out
+        return matvec
+
+    return at
+
+
 def make_lm_solver(residual_fn: Callable, params_template, steps: int = 100,
                    cg_iters: int = 50, lam0: float = 1e-2, lam_min: float = 1e-9,
-                   lam_max: float = 1e6) -> Callable:
+                   lam_max: float = 1e6, graph: bool | None = None) -> Callable:
     """solver(params, batch, gamma, scale) -> LMResult: `steps` LM steps
     with Marquardt damping λ·curv (curv = ‖J ĝ‖², ĝ the unit gradient) and
-    accept/reject trust-region updates of λ."""
+    accept/reject trust-region updates of λ. graph (None: on a CUDA
+    device) replays each CG matvec from a CUDA graph; False launches it op
+    by op."""
     shapes = [t.shape for pair in params_template for t in pair]
     sizes = [int(np.prod(s)) for s in shapes]
 
@@ -99,6 +142,8 @@ def make_lm_solver(residual_fn: Callable, params_template, steps: int = 100,
         def rflat(th):
             return residual_fn(unravel(th), batch, gamma, scale)
 
+        graphed = (_graphed_normal_matvec(rflat, theta)
+                   if (theta.is_cuda if graph is None else graph) else None)
         losses, lams = [], []
         for _ in range(steps):
             r, vjp_fn = vjp(rflat, theta)
@@ -112,6 +157,8 @@ def make_lm_solver(residual_fn: Callable, params_template, steps: int = 100,
                 _, jv = jvp(rflat, (theta,), (v,))
                 return vjp_fn(jv)[0] + lam * curv * v
 
+            if graphed is not None:
+                matvec = graphed(theta, lam * curv)
             delta = cg(matvec, g, cg_iters)
             theta_new = theta - delta
             r_new = rflat(theta_new)

@@ -1,5 +1,5 @@
-"""Training loop with the reference's early-stop semantics, port of
-`gpe_tpu/train/loop.py:fit`.
+"""Training loops with the reference's early-stop semantics, port of
+`gpe_tpu/train/loop.py` (`fit`, `fit_ensemble`).
 
 - a gradient step each epoch (scheduler inside the optimizer);
 - the best-loss params are tracked and RESTORED at the end;
@@ -11,6 +11,14 @@ host reads the done flag and the loss/μ histories once per `check_every`
 chunk, never per step; steps after an early stop inside a chunk are masked
 (computed, not applied), as in the JAX scan. Params are any tree of tensors
 (the MLP's (W, b) pairs, or the self-adaptive {"net", "log_alpha"}).
+
+`fit_ensemble` trains R runs at once (a leading run axis on every leaf)
+with the same semantics per run, where the JAX package vmaps `fit`'s chunk
+over the runs: per-run γ, scale and batch entries, per-run clip and LR
+(the optimizer's `per_run_form()`), early stop and best-restore. A fused
+value-and-grad steps all runs in one launch of its run-mode kernels
+(`vag.run_axis`); without one, `torch.func.vmap` batches autograd of the
+loss over the runs.
 """
 from __future__ import annotations
 
@@ -63,6 +71,12 @@ def value_and_grad(loss_fn: Callable) -> Callable:
 
 def _where(cond, a, b):
     return pytree.tree_map(lambda x, y: torch.where(cond, x, y), a, b)
+
+
+def _run_where(cond, a, b):
+    """Per run: `a`'s leaves where cond (R,) else `b`'s."""
+    return pytree.tree_map(
+        lambda x, y: torch.where(cond.reshape(-1, *([1] * (x.ndim - 1))), x, y), a, b)
 
 
 def _as_device_scalar(v, device) -> torch.Tensor:
@@ -143,3 +157,149 @@ def fit(loss_fn: Callable, optimizer, params, batch, gamma, scale,
         mu_history=mu_history,
         mu_best=float(aux_best["mu"]),
     )
+
+
+_MESH = ("mesh is not ported yet (ROADMAP.md Queue 1 item 5); see "
+         "gpe_tpu.train.loop.fit_ensemble")
+
+
+def _run_vector(v, R: int, device) -> torch.Tensor:
+    """A number or an (R,) sequence as an (R,) f32 tensor on `device`."""
+    t = torch.as_tensor(v, dtype=torch.float32).to(device)
+    return t.expand(R).contiguous() if t.ndim == 0 else t.reshape(R).contiguous()
+
+
+def _plain_ensemble(loss_fn: Callable):
+    """(vag, loss) over the run axis by torch.func: vag(params, batch, prb,
+    gamma, scale) -> ((total (R,), aux), run-stacked grads) and loss(...) ->
+    (total, aux), with the per-run batch entries `prb` merged over the
+    shared batch of each run."""
+    from torch.func import grad_and_value, vmap
+
+    def one(params, prb, batch, gamma, scale):
+        return loss_fn(params, {**batch, **prb}, gamma, scale)
+
+    dims = (0, 0, None, 0, 0)
+    gv = vmap(grad_and_value(one, has_aux=True), in_dims=dims)
+    ev = vmap(one, in_dims=dims)
+
+    def vag(params, batch, prb, gamma, scale):
+        grads, (total, aux) = gv(params, prb, batch, gamma, scale)
+        return (total, aux), grads
+
+    return vag, lambda params, batch, prb, gamma, scale: ev(params, prb, batch,
+                                                           gamma, scale)
+
+
+def fit_ensemble(loss_fn: Callable, optimizer, params_batch, batch, gamma, scale,
+                 epochs: int = 5001, tol: float = 1e-5, patience: int = 2000,
+                 check_every: int = 512, value_and_grad_fn: Callable = None,
+                 mesh=None, per_run_batch: dict = None) -> EnsembleFitResult:
+    """R runs in one batched step each epoch, on the device of the params:
+    every leaf of `params_batch` has the leading run axis R.
+
+    gamma, scale: numbers, or (R,) per run (per-seed q-scales, the vanilla
+    baseline's per-checkpoint γ). per_run_batch: {key: (R, …)} batch entries
+    that differ per run and override the shared `batch`'s (each seed's own
+    rebased base). `optimizer` is a single-run optimizer (plpinn.
+    ramp_optimizer, make_optimizer); each run is clipped and stepped on its
+    own (`per_run_form()`). Per-run early stop (the steps after a run's stop
+    are computed, not applied), best-restore, `stop_epoch` and `epochs_run`;
+    `mu_best` is μ of the loss at the restored params. The host reads the
+    histories and done flags once per chunk and stops when every run is
+    done.
+
+    `value_and_grad_fn`: a single-run fused vag (problem.
+    make_fused_value_and_grad); its run-mode twin `.run_axis` steps all runs
+    in one launch of the run-mode kernels, a stateful one initialised here
+    (one run-mode K1 launch). None: autograd of `loss_fn` vmapped over the
+    runs (torch.func). `mesh` raises NotImplementedError."""
+    if mesh is not None:
+        raise NotImplementedError(_MESH)
+    pin_full_f32()
+    leaves = pytree.tree_leaves(params_batch)
+    dev, R = leaves[0].device, leaves[0].shape[0]
+    gamma = _run_vector(gamma, R, dev)
+    scale = _run_vector(scale, R, dev)
+    prb = {}
+    for k, v in (per_run_batch or {}).items():
+        t = torch.as_tensor(v).to(dev).contiguous()
+        if t.shape[0] != R:
+            raise ValueError(f"per_run_batch[{k!r}] must lead with R={R}, "
+                             f"got {tuple(t.shape)}")
+        prb[k] = t
+    check_every = min(check_every, epochs)
+    opt = optimizer.per_run_form()
+    plain_vag, plain_loss = _plain_ensemble(loss_fn)
+    state = None
+    if value_and_grad_fn is None:
+        def vag(p, state):
+            return plain_vag(p, batch, prb, gamma, scale), state
+    else:
+        twin = getattr(value_and_grad_fn, "run_axis", None)
+        if twin is None:
+            raise ValueError("value_and_grad_fn has no run-mode twin (.run_axis); "
+                             "pass a fused vag of kernels/fused_grad.py or None")
+        merged = {**batch, **prb}
+        if getattr(twin, "stateful", False):
+            state = twin.init_state(params_batch, merged, gamma, scale)
+
+            def vag(p, state):
+                value, grads, state = twin(p, merged, gamma, scale, state)
+                return (value, grads), state
+        else:
+            def vag(p, state):
+                return twin(p, merged, gamma, scale), state
+
+    params = params_batch
+    opt_state = opt.init(params)
+    best_params = params
+    best_loss = torch.full((R,), float("inf"), dtype=torch.float32, device=dev)
+    since = torch.zeros((R,), dtype=torch.int64, device=dev)
+    done = torch.zeros((R,), dtype=torch.bool, device=dev)
+    stop_epoch = torch.full((R,), epochs, dtype=torch.int64, device=dev)
+
+    losses, mus = [], []
+    steps_done = 0
+    while steps_done < epochs:
+        n = min(check_every, epochs - steps_done)
+        l_hist, mu_hist = [], []
+        for i in range(n):
+            ((loss, aux), grads), state = vag(params, state)
+            updates, opt_state = opt.update(grads, opt_state, loss)
+            new_params = pytree.tree_map(torch.add, params, updates)
+            improved = (loss < best_loss) & ~done
+            best_loss = torch.where(improved, loss, best_loss)
+            best_params = _run_where(improved, params, best_params)
+            since = torch.where(improved, torch.zeros_like(since), since + 1)
+            now_done = (loss <= tol) | (since >= patience)
+            stop_epoch = torch.where(done | ~now_done, stop_epoch,
+                                     torch.full_like(stop_epoch, steps_done + i))
+            params = _run_where(done, params, new_params)
+            done = done | now_done
+            l_hist.append(loss)
+            mu_hist.append(aux["mu"])
+        # one host read per chunk: (n, R) losses, (n, R) μ, the done flags
+        host = torch.cat([torch.stack(l_hist), torch.stack(mu_hist),
+                          done[None].float()]).cpu().numpy()
+        losses.append(host[:n].T)
+        mus.append(host[n:2 * n].T)
+        steps_done += n
+        if host[-1].all():
+            break
+
+    loss_history = np.concatenate(losses, axis=1)
+    mu_history = np.concatenate(mus, axis=1)
+    stop = stop_epoch.cpu().numpy()
+    epochs_run = np.where(done.cpu().numpy(), np.minimum(stop, epochs), steps_done)
+    with torch.no_grad():
+        _, aux_best = plain_loss(best_params, batch, prb, gamma, scale)
+    return EnsembleFitResult(
+        params=best_params,
+        final_params=params,
+        best_loss=best_loss.cpu().numpy(),
+        mu=mu_history[:, -1],
+        epochs_run=epochs_run,
+        loss_history=loss_history,
+        mu_history=mu_history,
+        mu_best=aux_best["mu"].cpu().numpy())

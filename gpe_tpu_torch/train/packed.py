@@ -31,8 +31,8 @@ import torch
 from gpe_tpu_torch.device import pin_full_f32, resolve_device
 from gpe_tpu_torch.kernels.fused_residual import make_loss_eval
 from gpe_tpu_torch.kernels.packing import packable_runs
-from gpe_tpu_torch.train.loop import EnsembleFitResult
-from gpe_tpu_torch.train.optimizers import adam_init, scale_by_adam
+from gpe_tpu_torch.train.loop import EnsembleFitResult, _run_vector, _run_where
+from gpe_tpu_torch.train.optimizers import ClipAdam
 from gpe_tpu_torch.train.problem import (make_packed_value_and_grad,
                                          packed_eligible, packed_value_and_grad)
 from gpe_tpu_torch.train.schedules import cosine_warm_restarts
@@ -40,77 +40,21 @@ from gpe_tpu_torch.train.schedules import cosine_warm_restarts
 LR_MODES = ("loss_faithful", "cosine", "constant")
 
 
-def _leaves(tree):
-    return [t for pair in tree for t in pair]
-
-
-def _pairs(leaves):
-    return tuple((leaves[i], leaves[i + 1]) for i in range(0, len(leaves), 2))
-
-
-def _along(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """An (R,) vector shaped to broadcast over a run-stacked leaf g."""
-    return v.reshape(-1, *([1] * (g.ndim - 1)))
-
-
-def _run_factors(leaves, factors):
-    """Multiply each run-stacked leaf by its run's scalar (factors (R,))."""
-    return [g * _along(factors, g) for g in leaves]
-
-
-def _per_run_norm(leaves):
-    """Per-run global gradient norms (R,) of run-stacked leaves."""
-    return torch.sqrt(sum(torch.sum(g.float() ** 2, dim=tuple(range(1, g.ndim)))
-                          for g in leaves))
-
-
-def _run_select(cond, new, old):
-    """Per run: `new`'s leaves where cond (R,) else `old`'s."""
-    return _pairs([torch.where(_along(cond, n), n, o)
-                   for n, o in zip(_leaves(new), _leaves(old))])
-
-
-class _PackedRampOptimizer:
-    """Per-run clip → Adam (optax.scale_by_adam defaults; elementwise, hence
-    per run) → per-run LR. init(params) / update(grads, state, value) like
-    the port's ClipAdam; `value` is the (R,) per-run loss vector."""
-
-    def __init__(self, lr: float, lr_mode: str, clip_norm: float):
-        if lr_mode not in LR_MODES:
-            raise ValueError(f"unknown lr_mode {lr_mode!r}; have {LR_MODES}")
-        self.lr, self.lr_mode, self.clip_norm = lr, lr_mode, clip_norm
-        self.sched = cosine_warm_restarts(lr, T_0=200, T_mult=2, eta_min=1e-6)
-
-    def init(self, params):
-        leaves = _leaves(params)
-        return {"adam": adam_init(leaves),
-                "count": torch.zeros((), dtype=torch.float32,
-                                     device=leaves[0].device)}
-
-    def update(self, grads, state, value=None):
-        g = _leaves(grads)
-        norms = _per_run_norm(g)
-        g = _run_factors(g, self.clip_norm / torch.clamp_min(norms, self.clip_norm))
-        u, adam = scale_by_adam(g, state["adam"])
-        count = state["count"]
-        if self.lr_mode == "loss_faithful":
-            if value is None:
-                raise ValueError("loss_faithful needs the per-run loss vector")
-            u = _run_factors(u, -self.sched(value.detach()))
-        elif self.lr_mode == "cosine":
-            u = torch._foreach_mul(u, -self.sched(count))
-        else:
-            u = torch._foreach_mul(u, -self.lr)
-        return _pairs(u), {"adam": adam, "count": count + 1.0}
-
-
-def packed_ramp_optimizer(lr: float, lr_mode: str, clip_norm: float = 1.0):
+def packed_ramp_optimizer(lr: float, lr_mode: str, clip_norm: float = 1.0) -> ClipAdam:
     """Per-run twin of plpinn.ramp_optimizer (and, for lr_mode="cosine", of
     clip_by_global_norm(1) + adam(cosine_warm_restarts(lr, 200, 2, 1e-6)))
     for run-stacked ensembles: per-run clip → Adam → per-run LR, where
     "loss_faithful" evaluates the warm-restart schedule at each run's loss,
-    "cosine" at the step count and "constant" uses lr."""
-    return _PackedRampOptimizer(lr, lr_mode, clip_norm)
+    "cosine" at the step count and "constant" uses lr. `update`'s value is
+    the (R,) per-run loss vector."""
+    if lr_mode not in LR_MODES:
+        raise ValueError(f"unknown lr_mode {lr_mode!r}; have {LR_MODES}")
+    sched = cosine_warm_restarts(lr, T_0=200, T_mult=2, eta_min=1e-6)
+    if lr_mode == "loss_faithful":
+        return ClipAdam(lambda loss: -sched(loss), clip=clip_norm, per_run=True)
+    if lr_mode == "cosine":
+        return ClipAdam(clip=clip_norm, count_scale=lambda c: -sched(c), per_run=True)
+    return ClipAdam(clip=clip_norm, count_scale=lambda c: -lr, per_run=True)
 
 
 class PackedCarry(NamedTuple):
@@ -159,11 +103,6 @@ def _ensemble_vag(spec, M: int, device: torch.device):
         raise ValueError("spec not eligible for the packed fused path "
                          f"(M={M}, layers={spec.layers})")
     return vag
-
-
-def _run_vector(v, R: int, device) -> torch.Tensor:
-    t = torch.as_tensor(v, dtype=torch.float32).to(device)
-    return t.expand(R).contiguous() if t.ndim == 0 else t.reshape(R).contiguous()
 
 
 def fit_ensemble_packed(spec, params_batch, batch, gamma, scale,
@@ -228,9 +167,9 @@ def fit_ensemble_packed(spec, params_batch, batch, gamma, scale,
         stop = torch.where(keep | ~now_done, c.stop_epoch,
                            torch.full_like(c.stop_epoch, c.epoch))
         return PackedCarry(
-            params=_run_select(keep, c.params, new_params),
+            params=_run_where(keep, c.params, new_params),
             opt_state=opt_state,
-            best_params=_run_select(improved, c.params, c.best_params),
+            best_params=_run_where(improved, c.params, c.best_params),
             best_loss=torch.where(improved, loss, c.best_loss),
             since_improve=since, done=keep | now_done, stop_epoch=stop,
             epoch=c.epoch + 1, vag_state=vstate), loss, aux["mu"]

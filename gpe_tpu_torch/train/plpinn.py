@@ -25,7 +25,7 @@ from gpe_tpu_torch.train.pretrain import pretrain_to_base
 from gpe_tpu_torch.train.problem import (GPESpec, spec_ansatz, base_triple,
                                          make_batch, make_fused_value_and_grad,
                                          make_loss_fn)
-from gpe_tpu_torch.train.schedules import cosine_warm_restarts, scale_by_loss_as_step
+from gpe_tpu_torch.train.schedules import cosine_warm_restarts
 
 
 def _warmup(count):
@@ -46,16 +46,18 @@ def ramp_optimizer(lr: float = 1e-3, lr_mode: str = "loss_faithful"):
     - "warmup_cosine": cosine × min(1, count/200).
 
     The count is optax's schedule count, the updates before this one: the
-    warmup modes' first update is scaled by 0."""
+    warmup modes' first update is scaled by 0. The ensemble trainers take
+    its `per_run_form()`: clip and loss-as-step LR per run."""
     sched = cosine_warm_restarts(lr, T_0=200, T_mult=2, eta_min=1e-6)
+    at_loss = lambda loss: -sched(loss)
     if lr_mode == "loss_faithful":
-        return ClipAdam(scale_by_loss_as_step(sched), clip=1.0)
+        return ClipAdam(at_loss, clip=1.0)
     if lr_mode == "cosine":
         return make_optimizer("adam", sched, clip_norm=1.0)
     if lr_mode == "constant":
         return make_optimizer("adam", lr, clip_norm=1.0)
     if lr_mode == "warmup_faithful":
-        return ClipAdam(scale_by_loss_as_step(sched), clip=1.0, count_scale=_warmup)
+        return ClipAdam(at_loss, clip=1.0, count_scale=_warmup)
     if lr_mode == "warmup_cosine":
         return ClipAdam(clip=1.0, count_scale=lambda c: -(sched(c) * _warmup(c)))
     raise ValueError(f"unknown lr_mode {lr_mode!r}")

@@ -406,3 +406,113 @@ def test_kernels_on_the_gravity_well_batch(cuda_device, mode, gamma, scale):
             k2.collocation_grads.launches - before[1]) == (1, 1)
     ref, raux = tprob.make_loss_fn(spec)(params, batch, gamma, scale)
     np.testing.assert_allclose(float(aux["mu"]), float(raux["mu"]), rtol=1e-4)
+
+
+def _ensemble_case(R, per_run_gamma, device):
+    """A 1,000-point harmonic trap, [1,32,32,1] shifted_tanh, R run-stacked
+    nets of numpy seeds with per-run q-scales; γ 20, or 0…100 per run."""
+    from gpe_tpu_torch.models.mlp import stack_runs
+
+    spec = tprob.GPESpec(n_points=1000, layers=(1, 32, 32, 1))
+    batch = tprob.make_batch(spec, 0, device=device)
+    runs = [_inputs(spec.layers, 1, device, seed=40 + r, w_scale=0.5)[0]
+            for r in range(R)]
+    gammas = [20.0 * r for r in range(R)] if per_run_gamma else 20.0
+    scales = [0.01 * (1 + r) for r in range(R)]
+    return spec, batch, stack_runs(runs), runs, gammas, scales
+
+
+@pytest.mark.parametrize("R,per_run_gamma", [(5, False), (6, True)])
+def test_fit_ensemble_fused_route_matches_single_fits(cuda_device, monkeypatch, R,
+                                                      per_run_gamma):
+    """fit_ensemble with the default (relaxed) fused vag steps all runs
+    with one run-mode K2 (K3 grads) launch per step and one run-mode K1 for
+    its initial state, and no single-run launch; its histories match R
+    single-run fused fits (loss rtol 1e-4, μ 1e-5)."""
+    from gpe_tpu_torch.train.loop import fit, fit_ensemble
+    from gpe_tpu_torch.train.plpinn import ramp_optimizer
+
+    for var in ("GPE_TPU_TORCH_NO_FUSED", "GPE_TPU_TORCH_NO_RELAXED",
+                "GPE_TPU_TORCH_RELAXED_FUSED"):
+        monkeypatch.delenv(var, raising=False)
+    spec, batch, pb, runs, gammas, scales = _ensemble_case(R, per_run_gamma, cuda_device)
+    vag = tprob.make_fused_value_and_grad(spec, device=cuda_device)
+    loss_fn = tprob.make_loss_fn(spec)
+    kw = dict(epochs=40, tol=0.0, patience=10 ** 9, check_every=20)
+    counters = (k1.collocation_sums, k2.collocation_grads, k1.collocation_sums_runs,
+                k2.collocation_grads_runs)
+    for c in counters:
+        c.launches = 0
+    ens = fit_ensemble(loss_fn, ramp_optimizer(1e-3), pb, batch, gammas, scales,
+                       value_and_grad_fn=vag, **kw)
+    assert [c.launches for c in counters] == [0, 0, 1, 40]
+    g = gammas if per_run_gamma else [gammas] * R
+    for r in range(R):
+        one = fit(loss_fn, ramp_optimizer(1e-3), runs[r], batch, g[r], scales[r],
+                  value_and_grad_fn=vag, **kw)
+        np.testing.assert_allclose(ens.loss_history[r], one.loss_history, rtol=1e-4)
+        np.testing.assert_allclose(ens.mu_history[r], one.mu_history, rtol=1e-5)
+        np.testing.assert_allclose(ens.mu_best[r], one.mu_best, rtol=1e-5)
+
+
+@pytest.mark.parametrize("R,per_run_gamma", [(5, False), (6, True)])
+def test_fit_ensemble_fused_route_matches_the_plain_route(cuda_device, monkeypatch, R,
+                                                          per_run_gamma):
+    """The fused route with the exact step (K3 sums and grads each step)
+    against the plain route (torch.func over autograd of the loss) on the
+    card: μ histories rtol 1e-5. The fused loss is built from the four
+    sums, whose pde term (S₀ − 2μS₁ + μ²S₂)/N cancels digits, so loss
+    histories are held at 1e-3 (4.4e-4 measured with the kernels' plain
+    versions on the CPU)."""
+    from gpe_tpu_torch.train.loop import fit_ensemble
+    from gpe_tpu_torch.train.plpinn import ramp_optimizer
+
+    monkeypatch.delenv("GPE_TPU_TORCH_NO_FUSED", raising=False)
+    spec, batch, pb, _, gammas, scales = _ensemble_case(R, per_run_gamma, cuda_device)
+    vag = tprob.make_fused_value_and_grad(spec, device=cuda_device, relaxed=False)
+    loss_fn = tprob.make_loss_fn(spec)
+    kw = dict(epochs=40, tol=0.0, patience=10 ** 9, check_every=20)
+    before = k2.collocation_grads_runs.launches
+    fused = fit_ensemble(loss_fn, ramp_optimizer(1e-3), pb, batch, gammas, scales,
+                         value_and_grad_fn=vag, **kw)
+    assert k2.collocation_grads_runs.launches - before == 40
+    plain = fit_ensemble(loss_fn, ramp_optimizer(1e-3), pb, batch, gammas, scales, **kw)
+    np.testing.assert_allclose(fused.mu_history, plain.mu_history, rtol=1e-5)
+    np.testing.assert_allclose(fused.loss_history, plain.loss_history, rtol=1e-3)
+
+
+def test_lm_graphed_matvec_matches_the_eager_one(cuda_device):
+    """The LM solver's CUDA-graph CG matvec against the op-by-op one on the
+    card: 6 LM steps of a perturbation ansatz at γ = 20, loss histories
+    rtol 1e-5 and the same accept/reject sequence of λ."""
+    from gpe_tpu_torch.train.gauss_newton import make_gpe_residual_fn, make_lm_solver
+
+    spec = tprob.GPESpec(n_points=1000, layers=(1, 32, 32, 1))
+    batch = tprob.make_batch(spec, 0, device=cuda_device)
+    params = _inputs(spec.layers, 1, cuda_device, seed=3, w_scale=0.5)[0]
+    rfn = make_gpe_residual_fn(spec)
+    out = [make_lm_solver(rfn, params, steps=6, cg_iters=40, graph=g)(
+        params, batch, 20.0, 0.05) for g in (False, True)]
+    np.testing.assert_allclose(out[1].loss_history, out[0].loss_history, rtol=1e-5)
+    np.testing.assert_array_equal(out[1].lam_history, out[0].lam_history)
+
+
+def test_pretrain_graphed_adam_steps_match_the_eager_ones(cuda_device):
+    """pretrain_to_base's Adam steps replayed from a CUDA graph against the
+    same steps launched op by op: 50 steps, the same params to rtol 1e-6."""
+    from gpe_tpu_torch.models.mlp import mlp_apply
+    from gpe_tpu_torch.train.pretrain import _adam_steps
+
+    spec = tprob.GPESpec(n_points=1000, layers=(1, 32, 32, 1))
+    batch = tprob.make_batch(spec, 1, device=cuda_device)
+    params = _inputs(spec.layers, 1, cuda_device, seed=4)[0]
+    out = []
+    for graph in (False, True):
+        leaves = [t.clone().requires_grad_(True) for pair in params for t in pair]
+        pairs = tuple((leaves[i], leaves[i + 1]) for i in range(0, len(leaves), 2))
+        mse = lambda: torch.mean((mlp_apply(pairs, batch["x"], spec.activation)
+                                  - batch["base_val"]) ** 2)
+        _adam_steps(mse, leaves, 1e-3, 50, graph)
+        out.append([t.detach().cpu().numpy() for t in leaves])
+    for a, b in zip(*out):
+        np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-9)

@@ -425,7 +425,7 @@ def test_fused_gate_follows_jax():
 def test_seed_stats_packed_branch_takes_the_gravity_well(tmp_path, monkeypatch):
     """The CLI on a reduced p3_gravity_well family (two seeds, a 3-rung
     ramp) through the run-stacked ensemble, scored against the committed
-    oracle; the hard-BC families still wait for the vmapped ensemble."""
+    oracle; the hard-BC families (reduced alike) through fit_ensemble."""
     from gpe_tpu_torch.experiments import seed_stats as tss
 
     fam = tss.get_family("p3_gravity_well")
@@ -442,6 +442,14 @@ def test_seed_stats_packed_branch_takes_the_gravity_well(tmp_path, monkeypatch):
     assert all(abs(m - rows[0]["mu_ref"]) < 5e-2 for m in rows[0]["mu_seeds"])
     monkeypatch.undo()
     for name in ("p3_box", "p3_gaussian"):
-        with pytest.raises(NotImplementedError, match="fit_ensemble"):
-            tss.run_seed_stats(name, modes=(0,), n_seeds=2, epochs=2, device="cpu",
-                               out_path=str(tmp_path / f"{name}.json"))
+        fam = tss.get_family(name)
+        monkeypatch.setattr(tss, "get_family", lambda _, fam=fam: dict(
+            fam, spec=replace(fam["spec"], n_points=96, layers=(1, 8, 8, 1))))
+        res = tss.run_seed_stats(name, modes=(0,), n_seeds=2, epochs=2, ramp_step=50.0,
+                                 device="cpu", out_path=str(tmp_path / f"{name}.json"),
+                                 verbose=False)
+        for method in ("PL-PINN", "PL-PINN-R"):
+            rows = res["modes"]["0"][method]["rows"]
+            assert [r["gamma"] for r in rows] == [0.0, 100.0]
+            assert all(len(r["mu_seeds"]) == 2 and np.isfinite(r["mu_seeds"]).all()
+                       for r in rows)

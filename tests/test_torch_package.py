@@ -76,8 +76,9 @@ def test_entry_points_without_device_raise_when_there_is_no_card(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_plpinn(spec, [0.0], epochs=2, pretrain_epochs=2)
 
-    from gpe_tpu_torch.experiments import run
+    from gpe_tpu_torch.experiments import paper_tables, run
     from gpe_tpu_torch.ops import geometry
+    from gpe_tpu_torch.train import compare
     from gpe_tpu_torch.physics.bases import airy_table
     from gpe_tpu_torch.validate import fdm, rotating
     from gpe_tpu_torch.validate.imaginary_time import imaginary_time_gpe
@@ -97,6 +98,10 @@ def test_entry_points_without_device_raise_when_there_is_no_card(tmp_path):
                                    "--out", str(tmp_path)]),
                  lambda: run.main(["mode0_all_potentials", "--epochs", "1",
                                    "--out", str(tmp_path)]),
+                 lambda: run.main(["multirun_box_mode0", "--epochs", "1",
+                                   "--out", str(tmp_path)]),
+                 lambda: paper_tables.main(["--epochs", "1", "--out", str(tmp_path)]),
+                 lambda: compare.train_single_model(spec, 0.0, epochs=1),
                  lambda: airy_table(),
                  lambda: geometry.disk_points((0.0, 0.0), 1.0, 8)):
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -448,8 +448,15 @@ def test_paper_families_configs_and_oracle_match_jax():
     ref = tss._oracle_from_csv(d)
     assert ref == jss._oracle_from_csv(str(d))
     assert all(abs(ref[(n, 0.0)] - (2 * n + 1)) < 1e-6 for n in range(6))
-    with pytest.raises(NotImplementedError, match="fit_ensemble"):
-        tss._train_seeds_vmapped()
+    # the hard-BC seed ensemble (the packed kernels cannot take it) trains
+    # on fit_ensemble: μ of every seed at every γ of the ramp
+    box = tprob.GPESpec(n_points=96, layers=(1, 8, 8, 1), lb=0.0, ub=1.0,
+                        potential="box", basis="box", hard_bc=True)
+    mus = tss._train_seeds_vmapped(box, [0.0, 1.0], 0, 2, 42, 3, 10 ** 9,
+                                   "loss_faithful", True, device="cpu")
+    assert list(mus) == [0.0, 1.0]
+    assert all(len(v) == 2 and all(np.isfinite(v)) for v in mus.values())
+    assert all(abs(m - np.pi ** 2) < 0.5 for m in mus[0.0])
 
 
 def test_seed_stats_cli_runs_the_packed_branch_on_the_cpu(tmp_path, monkeypatch):

@@ -253,9 +253,11 @@ def test_configs_match_the_jax_registry():
             "harmonic_p16", "gpe1d_tf", "gpe2d_lattice", "harmonic_paper",
             "linear_1d_sanity", "gpe2d_ground_state", "box_paper", "gravity_well_paper",
             "gpe2d_circle", "harmonic_self_adaptive", "gpe2d_anti_trivial",
-            "riesz_mode0", "mode0_all_potentials"} <= set(EXPERIMENTS)
+            "riesz_mode0", "mode0_all_potentials", "compare_harmonic_mode0",
+            "multirun_harmonic_mode0", "multirun_box_mode0"} <= set(EXPERIMENTS)
+    assert len(WAITING) == 14
     for what in ("basis", "ansatz", "geometry", "gpe_terms", "self_adaptive",
-                 "fit branch", "cross-potential"):
+                 "fit branch", "cross-potential", "compare"):
         assert not any(what in v for v in WAITING.values()), what
     cfg_fields = [f.name for f in fields(next(iter(EXPERIMENTS.values())))]
     assert cfg_fields == [f.name for f in fields(next(iter(JEXP.values())))]
