@@ -56,6 +56,15 @@ port's three paths on the card:
    `compare_harmonic_mode0` (300 epochs); (c) `paper_tables.run_family`
    on `p3_harmonic` mode 0 (Δγ = 20, 300 epochs), its oracle against the
    committed table's mu_ref.
+7. the continuation and excited-state trainers: (a) the runner's
+   beta_sweep branch on `vary_beta_gravity_well` (4,000 points,
+   [1,64,64,64,1], all six β of 1…100, 300 epochs a rung) on the K2 route
+   and on the autograd route, each μ against the exact β^(2/3)·|a₀|, the
+   routes against each other, K1/K2 against their plain versions at β =
+   100 and the fused loss against autograd's there; (b) the other seven
+   configs of the slice (the box sweeps, two-stage, p-ramp, both
+   deflations, ReLoBRaLo) at full width and cut depth, none of which
+   launches a kernel.
 
 A kernel row's "ms" is device time: CUDA events around replays of a CUDA
 graph of one wrapper call; "call_ms" is back-to-back calls, host work
@@ -1464,6 +1473,217 @@ def phase_run_family(dev):
     return summary
 
 
+# phase 7: the continuation and excited-state trainers. The sweep's rungs are
+# cut to 300 of 2001 epochs; at β = 1 the pretrained base is the exact state,
+# so |μ(1) − |a₀|| above SWEEP_ATOL means a broken path. The two routes (K2
+# and autograd) start from the same pretrained params and must agree to
+# ROUTES_RTOL in μ at every β (the relaxed K2 step runs on stale cotangents,
+# so the trajectories are not the same).
+SWEEP_EPOCHS = 300
+SWEEP_ATOL = 1e-2
+ROUTES_RTOL = 1e-2
+EXACT_BASE_ATOL = 1e-2   # μ where a config's pretrained base is exact
+
+
+def _fused_loss_floor(spec, params, batch, scale):
+    """The plain loss on `params` (autograd's value), and the fused loss
+    built by `sums_to_loss` from K1's sums and from their plain version."""
+    import torch
+    from gpe_tpu_torch.kernels import fused_residual as k1
+    from gpe_tpu_torch.train.problem import make_loss_fn
+
+    kw = dict(activation=spec.activation, p=spec.p, kinetic=spec.kinetic,
+              nonlinearity=spec.nonlinearity)
+    n = batch["x"].shape[0]
+    with torch.no_grad():
+        total, aux = make_loss_fn(spec)(params, batch, 0.0, scale)
+        bc = spec.bc_weight * float(aux["boundary"])
+        out = {"autograd": {"total": float(total), "pde": float(aux["pde"]),
+                            "mu": float(aux["mu"])}}
+        for label, fn in (("k1", k1.collocation_sums),
+                          ("plain", k1.collocation_sums_plain)):
+            sums = fn(params, batch["x"], batch["V"], batch["w"], 0.0, scale,
+                      batch["base_val"], batch["base_lap"], **kw)
+            mu, pde, norm, _ = k1.sums_to_loss(sums, n, spec.norm_weight)
+            out[label] = {"total": float(pde) + bc + spec.norm_weight * float(norm),
+                          "pde": float(pde), "mu": float(mu)}
+    return out
+
+
+def phase_beta_sweep(dev):
+    """(a) The runner's beta_sweep branch on `vary_beta_gravity_well` at full
+    width (4,000 points, [1,64,64,64,1]), all six β, SWEEP_EPOCHS a rung,
+    2000 pretrain steps, once on the K2 route (the default relaxed step)
+    and once on the autograd route (GPE_TPU_TORCH_NO_FUSED=1): K1 once per
+    rung and K2 once per step on the first, neither on the second; each μ
+    against the exact β^(2/3)·|a₀|, |μ(1) − |a₀|| ≤ SWEEP_ATOL on both,
+    the routes within ROUTES_RTOL at every β. Then on the K2 route's
+    params: the fused loss against autograd's at β = 1 and β = 100, and at
+    β = 100 K1 and K2 against their plain versions."""
+    import tempfile
+
+    from gpe_tpu_torch.experiments import run, trainer_oracles
+    from gpe_tpu_torch.experiments.configs import EXPERIMENTS
+    from gpe_tpu_torch.io import load_bundle
+    from gpe_tpu_torch.kernels import fused_grad as k2
+    from gpe_tpu_torch.kernels import fused_residual as k1
+    from gpe_tpu_torch.models.mlp import params_from_numpy
+    from gpe_tpu_torch.train.beta_sweep import beta_scaled
+    from gpe_tpu_torch.train.problem import make_batch
+
+    name = "vary_beta_gravity_well"
+    cfg = EXPERIMENTS[name]
+    betas = sorted(cfg.beta_values)
+    bundles, rows, launches = {}, {}, {}
+    with tempfile.TemporaryDirectory() as out:
+        for route in ("k2", "autograd"):
+            k1.collocation_sums.launches = 0
+            k2.collocation_grads.launches = 0
+            if route == "autograd":
+                os.environ["GPE_TPU_TORCH_NO_FUSED"] = "1"
+            try:
+                rc = run.main([name, "--train", "--epochs", str(SWEEP_EPOCHS), "--out",
+                               os.path.join(out, route)])
+            finally:
+                os.environ.pop("GPE_TPU_TORCH_NO_FUSED", None)
+            launches[route] = {"fused_residual": k1.collocation_sums.launches,
+                               "fused_grad": k2.collocation_grads.launches}
+            with open(os.path.join(out, route, name, "summary.json")) as f:
+                rec = json.load(f)
+            bundles[route] = load_bundle(os.path.join(out, route, name, "bundle.pkl"))
+            fit_s = rec["seconds"]["fit"]["0"]
+            table = dict(bundles[route]["mu_table"][0])
+            rows[route] = {
+                "mu": table, "epochs": bundles[route]["epochs_history"][0],
+                "oracle_err": {b: abs(table[b] - trainer_oracles.gravity_well_mu(b))
+                               for b in betas},
+                "pretrain_s": rec["seconds"]["pretrain"]["0"],
+                "ms_per_step": {b: 1e3 * fit_s[str(b)] / SWEEP_EPOCHS for b in betas},
+                "wall_s": rec["wall_s"], "launches": launches[route]}
+            log(f"beta_sweep {route}: rc {rc}, wall {rec['wall_s']} s, pretrain "
+                f"{rows[route]['pretrain_s']:.2f} s, launches {launches[route]}")
+            for b in betas:
+                log(f"  β={b:5.1f}: μ {table[b]:.7f}, exact "
+                    f"{trainer_oracles.gravity_well_mu(b):.7f}, |Δ| "
+                    f"{rows[route]['oracle_err'][b]:.3e}, epochs "
+                    f"{rows[route]['epochs'][b]}, {rows[route]['ms_per_step'][b]:.4f} "
+                    "ms/step")
+            if rc != 0 or not all(math.isfinite(v) for v in table.values()):
+                raise AssertionError(f"beta_sweep {route}: rc {rc}, μ {table}")
+            if not rows[route]["oracle_err"][1.0] <= SWEEP_ATOL:
+                raise AssertionError(f"beta_sweep {route}: μ(β=1) {table[1.0]} off |a₀|")
+    want = {"k2": {"fused_residual": len(betas), "fused_grad": len(betas) * SWEEP_EPOCHS},
+            "autograd": {"fused_residual": 0, "fused_grad": 0}}
+    if launches != want:
+        raise AssertionError(f"beta_sweep launches {launches}, want {want}")
+    rel = {b: abs(rows["k2"]["mu"][b] / rows["autograd"]["mu"][b] - 1.0) for b in betas}
+    log("  K2 route vs autograd route, μ relative per β: "
+        + ", ".join(f"{b:g}: {v:.2e}" for b, v in rel.items()))
+    if not max(rel.values()) <= ROUTES_RTOL:
+        raise AssertionError(f"the K2 route's μ leaves the autograd route's: {rel}")
+
+    spec = cfg.spec
+    unit = make_batch(spec, 0, device=dev)
+    scale = cfg.perturb_const / bundles["k2"]["constant_history"][0]
+    floor = {}
+    for b in (1.0, 100.0):
+        batch = beta_scaled(unit, b)
+        params = params_from_numpy(bundles["k2"]["params_by_mode"][0][b], device=dev)
+        f = floor[b] = _fused_loss_floor(spec, params, batch, scale)
+        log(f"  fused loss at β={b:g}: autograd {f['autograd']['total']:.6e} (pde "
+            f"{f['autograd']['pde']:.6e}); from K1's sums − autograd "
+            f"{f['k1']['total'] - f['autograd']['total']:.3e} (pde "
+            f"{f['k1']['pde'] - f['autograd']['pde']:.3e}); from the plain sums − "
+            f"autograd {f['plain']['total'] - f['autograd']['total']:.3e}")
+    kw = dict(activation=spec.activation, p=spec.p, kinetic=spec.kinetic,
+              nonlinearity=spec.nonlinearity)
+    args = (params, batch["x"], batch["V"], batch["w"], 0.0, scale)
+    base = (batch["base_val"], batch["base_lap"])
+    sums = k1.collocation_sums(*args, *base, **kw)
+    want_s = k1.collocation_sums_plain(*args, *base, **kw)
+    s_rel = float(((sums - want_s).abs() / want_s.abs()).max())
+    cots = k1.sums_to_loss(sums, batch["x"].shape[0], spec.norm_weight)[3]
+    got, s_got = k2.collocation_grads(*args, cots, *base, **kw)
+    ab, norm = _grad_err(got, k2.collocation_grads_plain(*args, cots, *base, **kw)[0])
+    k2_rel = float(((s_got - sums).abs() / sums.abs()).max())
+    log(f"  β=100, the K2 route's params: K1 vs plain max rel {s_rel:.2e}; K2 grads "
+        f"vs plain max|Δ| {ab:.3e}, normalised {norm:.2e}; K2's sums vs K1 "
+        f"{k2_rel:.2e}")
+    if s_rel > K1_TOL or norm > K2_TOL or k2_rel > K1_TOL or not math.isfinite(ab):
+        raise AssertionError(f"K1/K2 at β=100: sums {s_rel:.3e}, grads {norm:.3e}, "
+                             f"K2's sums {k2_rel:.3e}")
+    return launches["k2"], {"routes": rows, "routes_mu_rel": rel, "loss_floor": floor,
+                            "beta100_kernels": {"k1_rel": s_rel, "k2_grad_norm": norm,
+                                                "k2_sums_rel": k2_rel}}
+
+
+# the other configs of the slice at full width, cut in depth: the runner's
+# extra arguments, where the record's μ are, and the exact μ of the first
+# rung where the pretrained base is that rung's exact state
+TRAINER_RUNS = {
+    "vary_beta_harmonic": (["--betas", "0", "0.5", "1", "--epochs", "100", "--pretrain",
+                            "300"], "bundle", (math.pi / 5) ** 2),
+    "vary_beta_box_gaussian": (["--betas", "0", "0.5", "1", "--epochs", "100",
+                                "--pretrain", "300"], "bundle", math.pi ** 2),
+    "two_stage_beta_gamma": (["--betas", "1", "1.5", "2", "--gammas", "0", "1",
+                              "--epochs", "100"], "mu_beta", 1.0),
+    "p_ramp_harmonic": (["--epochs", "100", "--pretrain", "300"], "mu_table", None),
+    "deflation_harmonic": (["--epochs", "300", "--lm-steps", "5"], "mu_table", None),
+    "deflation_2d": (["--epochs", "100", "--lm-steps", "3"], "mu_table", None),
+    "gpe2d_relobralo": (["--epochs", "100"], "mu", None),
+}
+
+
+def phase_trainer_configs(dev):
+    """(b) Every other config of the slice through the runner at full width
+    and point count, cut in depth (TRAINER_RUNS), into a temporary --out:
+    rc 0, finite μ, no K1 or K2 launch (the hard-BC sweeps, the (β, γ)
+    pair, the p ramp, deflation and ReLoBRaLo train by autograd, as in the
+    JAX package), and μ of the first rung within EXACT_BASE_ATOL of the
+    exact value where the pretrained base is exact (the box sweeps at β =
+    0, the two-stage run at β = 1). Returns the launches summed over the
+    configs and each config's seconds."""
+    import tempfile
+
+    from gpe_tpu_torch.experiments import run
+    from gpe_tpu_torch.io import load_bundle
+    from gpe_tpu_torch.kernels import fused_grad as k2
+    from gpe_tpu_torch.kernels import fused_residual as k1
+
+    total = {"fused_residual": 0, "fused_grad": 0}
+    seconds = {}
+    with tempfile.TemporaryDirectory() as out:
+        for name, (extra, where, exact) in TRAINER_RUNS.items():
+            k1.collocation_sums.launches = 0
+            k2.collocation_grads.launches = 0
+            t0 = time.perf_counter()
+            rc = run.main([name, "--train", "--out", out] + extra)
+            seconds[name] = time.perf_counter() - t0
+            counts = {"fused_residual": k1.collocation_sums.launches,
+                      "fused_grad": k2.collocation_grads.launches}
+            for k in total:
+                total[k] += counts[k]
+            with open(os.path.join(out, name, "summary.json")) as f:
+                rec = json.load(f)
+            log(f"{name}: rc {rc}, {seconds[name]:.2f} s, launches {counts}; record "
+                f"{json.dumps({k: v for k, v in rec.items() if k != 'seconds'})}")
+            if where == "bundle":
+                table = load_bundle(os.path.join(out, name, "bundle.pkl"))["mu_table"][0]
+                mus = [m for _, m in table]
+            elif where == "mu":
+                mus = [rec["mu"], rec["loss"]]
+            else:
+                mus = [m for _, m in rec[where]]
+            if rc != 0 or any(counts.values()) or not all(math.isfinite(m) for m in mus):
+                raise AssertionError(f"{name}: rc {rc}, launches {counts}, μ {mus}")
+            if exact is not None:
+                err = abs(mus[0] - exact)
+                log(f"  {name}: |μ(first rung) − {exact:.7f}| = {err:.3e}")
+                if not err <= EXACT_BASE_ATOL:
+                    raise AssertionError(f"{name}: μ {mus[0]} off the exact {exact}")
+    return total, seconds
+
+
 def main() -> int:
     try:
         import torch
@@ -1543,8 +1763,15 @@ def main() -> int:
     phases["run_family"] = time.perf_counter() - t0
     comparison = {k: fn.launches for k, fn in counter.kernels.items()}
     log(f"comparison path launches {comparison}; configs {json.dumps(config_launches)}")
+    t0 = time.perf_counter()
+    sweep_launches, sweep = phase_beta_sweep(dev)
+    phases["beta_sweep"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trainer_launches, trainer_s = phase_trainer_configs(dev)
+    phases["trainer_configs"] = time.perf_counter() - t0
     by_path = {"cross_potential": cross_launches, "gravity_well_packed": gw_launches,
-               "comparison": comparison}
+               "comparison": comparison, "beta_sweep": sweep_launches,
+               "trainer_configs": trainer_launches}
     for k in kernels:
         k["launches"] = launches[k["name"]]
         for path, counts in by_path.items():
@@ -1556,7 +1783,8 @@ def main() -> int:
                     "run_main_s": run_s, "families_phase_s": phases,
                     "fit_ensemble": ens_rows, "compare_configs_s": config_s,
                     "run_family": {k: family[k] for k in ("wall_s", "seconds",
-                                                          "launches")}}))
+                                                          "launches")},
+                    "beta_sweep": sweep, "trainer_configs_s": trainer_s}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

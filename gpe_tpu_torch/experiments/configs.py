@@ -2,7 +2,8 @@
 
 `EXPERIMENTS` holds every configuration of the JAX registry whose parts the
 port has (bases, potentials, ansatz, loss terms, trainer, runner branch):
-the `plpinn`, `fit`, `cross_potential` and `compare` ones. `WAITING` names
+the `plpinn`, `fit`, `cross_potential`, `compare`, `two_stage`,
+`beta_sweep`, `p_ramp`, `deflation` and `relobralo` ones. `WAITING` names
 each other JAX configuration and what it waits for, and `experiments/run.py` raises
 NotImplementedError with that text.
 """
@@ -185,8 +186,76 @@ _register(ExperimentConfig(
     algorithm="cross_potential", gamma_values=_gammas(11, 1.0),
     modes=(0,), epochs=2001))
 
-_BETA = "the β-sweep trainer (gpe_tpu.train.beta_sweep.train_beta_sweep)"
-_DEFLATION = "the deflation trainer (gpe_tpu.train.deflation.train_deflation)"
+# --- continuation and excited-state trainers ---------------------------------
+
+_register(ExperimentConfig(
+    name="two_stage_beta_gamma",                 # test_perturbing_gamma_and_beta.py
+    spec=_PAPER_1D, algorithm="two_stage",
+    beta_values=tuple(1.0 + 0.1 * k for k in range(11)),
+    gamma_values=_gammas(21)))
+
+_register(ExperimentConfig(
+    name="vary_beta_harmonic",                   # vary_potential_parameter_harmonic.py main
+    spec=replace(_PAPER_1D, lb=0.0, ub=5.0, hard_bc=True, basis="box",
+                 potential="harmonic"),
+    algorithm="beta_sweep",
+    beta_values=tuple(0.01 * k for k in range(101)),
+    gamma_values=(0.0,), modes=(0,), epochs=2001))
+
+_register(ExperimentConfig(
+    name="vary_beta_gravity_well",               # vary_potential_parameter_gravity_well.py
+    spec=replace(_PAPER_1D, lb=0.0, ub=35.0, potential="linear", basis="airy"),
+    algorithm="beta_sweep",
+    beta_values=(1.0, 20.0, 40.0, 60.0, 80.0, 100.0),
+    gamma_values=(0.0,), modes=(0,), epochs=2001))
+
+_register(ExperimentConfig(
+    name="vary_beta_box_gaussian",               # vary_potential_parameter_box_and_gaussian.py
+    # a hard-walled box whose base stays the box sine while a Gaussian bump
+    # V = β·exp(−x²/2) ramps in: the box→Gaussian interpolation
+    spec=replace(_PAPER_1D, lb=0.0, ub=1.0, potential="gaussian",
+                 potential_kwargs=(("sigma", 1.0),), basis="box", hard_bc=True),
+    algorithm="beta_sweep",
+    beta_values=tuple(0.05 * k for k in range(21)),
+    gamma_values=(0.0,), modes=(0,), epochs=2001))
+
+_register(ExperimentConfig(
+    name="p_ramp_harmonic",                      # ..._and_Nonlinearity_Powers.py
+    spec=replace(_PAPER_1D, nonlinearity="abs_power"),
+    algorithm="p_ramp", gamma_values=(10.0,), modes=(0,), epochs=2001))
+
+_register(ExperimentConfig(
+    name="deflation_harmonic",                   # BASELINE config #5 (part 1)
+    spec=GPESpec(lb=-8.0, ub=8.0, n_points=2000, layers=(1, 64, 64, 1),
+                 potential="harmonic", kinetic=1.0, nonlinearity="abs_power",
+                 activation="tanh", bc_weight=10.0, norm_weight=20.0,
+                 objective="riesz"),
+    algorithm="deflation", gamma_values=(10.0,), modes=(0, 1, 2, 3),
+    epochs=6000, lr=1e-3))
+
+_register(ExperimentConfig(
+    name="deflation_2d",                         # 2D excited states, no analytic bases
+    # sequential deflation resolves the degenerate first excited doublet of
+    # the 2D trap at γ = 5; the Riesz (energy) objective makes mode 0 land
+    # on the GROUND state (the pure residual objective accepts any
+    # eigenstate)
+    spec=GPESpec(dim=2, lb=-6.0, ub=6.0, n_points=80,
+                 layers=(2, 64, 64, 64, 1), activation="tanh",
+                 potential="harmonic", potential_kwargs=(("a", 0.5),),
+                 kinetic=0.5, nonlinearity="abs_power", use_perturbation=False,
+                 objective="riesz", bc_weight=10.0, norm_weight=20.0),
+    algorithm="deflation", gamma_values=(5.0,), modes=(0, 1, 2), epochs=6000))
+
+_register(ExperimentConfig(
+    name="gpe2d_relobralo",                      # src/gross_pitaevskii_2D_ReLoBRaLo.py
+    spec=GPESpec(dim=2, lb=-6.0, ub=6.0, n_points=100,
+                 layers=(2, 100, 100, 100, 1), activation="tanh",
+                 potential="harmonic", potential_kwargs=(("a", 0.5),),
+                 kinetic=0.5, nonlinearity="abs_power", use_perturbation=False,
+                 symmetry="y_even", sym_weight=500.0, riesz_weight=1.0,
+                 bc_weight=500.0, norm_weight=100.0, pde_weight=2.0),
+    algorithm="relobralo", gamma_values=(10.0,), epochs=3000))
+
 _HELMHOLTZ = "the Helmholtz trainer (gpe_tpu.helmholtz.problem.train_helmholtz)"
 
 # the JAX registry's other configurations and what each waits for
@@ -194,17 +263,9 @@ WAITING = {
     "deeponet_harmonic": "the DeepONet trainer (gpe_tpu.deeponet.model.train_deeponet)",
     "plpinn_sharded_dp": "collocation-sharded training (gpe_tpu.parallel.make_mesh, "
                          "train_plpinn(mesh=))",
-    "two_stage_beta_gamma": "the two-stage trainer (gpe_tpu.train.two_stage.train_two_stage)",
-    "vary_beta_harmonic": _BETA,
-    "vary_beta_gravity_well": _BETA,
-    "vary_beta_box_gaussian": _BETA,
-    "p_ramp_harmonic": "the p-ramp trainer (gpe_tpu.train.p_ramp.train_p_ramp)",
-    "deflation_harmonic": _DEFLATION,
     "helmholtz_square": _HELMHOLTZ,
     "helmholtz_circle": _HELMHOLTZ,
     "helmholtz_inverse_k": _HELMHOLTZ,
-    "gpe2d_relobralo": "the ReLoBRaLo trainer (gpe_tpu.train.balanced.fit_relobralo)",
     "different_optimizers_harmonic": "the curriculum trainer and the optimizer zoo "
                                      "(gpe_tpu.train.curriculum.train_curriculum)",
-    "deflation_2d": _DEFLATION,
 }

@@ -1,9 +1,10 @@
 """CLI experiment runner, port of `gpe_tpu/experiments/run.py`'s `plpinn`,
-`fit`, `cross_potential` and `compare` branches:
+`fit`, `cross_potential`, `compare`, `two_stage`, `beta_sweep`, `p_ramp`,
+`deflation` and `relobralo` branches:
 
     python -m gpe_tpu_torch.experiments.run <name> [--train] [--epochs N]
-        [--gammas G ...] [--modes M ...] [--pretrain N] [--seed S]
-        [--lm-steps N] [--out DIR] [--cpu] [--list]
+        [--gammas G ...] [--betas B ...] [--modes M ...] [--pretrain N]
+        [--seed S] [--lm-steps N] [--out DIR] [--cpu] [--list]
 
 - `plpinn`: train-or-load the bundle `<out>/<name>/bundle.pkl` (`--train`
   forces a fresh run), run `train_plpinn` with the config's `rebase` and
@@ -28,6 +29,20 @@
   one JSON line per γ (`gamma`, each method's `mu` and `loss`). Each
   method pretrains its full 2000 steps, as in the JAX runner, whatever
   `--pretrain` says.
+- `two_stage`: `train_two_stage` over the config's β, then its γ at the
+  last β (2000 pretrain steps whatever `--pretrain` says, as in the JAX
+  runner); one JSON line (`experiment`, `mu_beta`, `mu_gamma`, `wall_s`).
+- `beta_sweep`: train-or-load the bundle of `train_beta_sweep` over the
+  config's β at its first γ; one JSON line (`experiment`, `mu_table_tail`,
+  `wall_s`).
+- `p_ramp`: `train_p_ramp` over the config's p at its first γ and mode;
+  one JSON line (`experiment`, `mu_table`, `wall_s`).
+- `deflation`: `train_deflation` of len(modes) states at the first γ, with
+  the JAX runner's orth_weight 500 and 60 LM polish steps (`--lm-steps`
+  cuts them); one JSON line (`experiment`, `mu_table`, `wall_s`).
+- `relobralo`: `fit_relobralo` per γ of the config, warm-started from the
+  last step's params; one JSON line per γ (`gamma`, `mu`, `loss`,
+  `lambdas` of the last step by term).
 
 Every record adds `seconds` (the wall time of each part) and, on the card,
 `launches`: the f32 K1 and K2 launches of what it records
@@ -37,8 +52,9 @@ their run mode (K3: `collocation_sums_runs`, `collocation_grads_runs`).
 `<out>/<name>/summary.json` holds the records as the JAX runner writes them
 (one record, or the list).
 
-`--out` defaults to `runs_torch`; the port never writes under `runs/`,
-which holds the JAX package's artifacts. The run is on the CUDA card unless
+`--lm-steps` defaults to each branch's JAX value (120 for `plpinn`, 60
+for `deflation`). `--out` defaults to `runs_torch`; the port never writes
+under `runs/`, which holds the JAX package's artifacts. The run is on the CUDA card unless
 `--cpu` is given. A failing oracle fails the run. Plots are left out (the
 JAX runner's `viz/` suite is not ported). Configurations of the JAX
 registry the port cannot build yet, and the other algorithms, raise
@@ -112,8 +128,9 @@ def _train(cfg, spec, modes, dev, lm_steps):
                         tol=cfg.tol, patience=cfg.patience,
                         perturb_const=cfg.perturb_const, lr=cfg.lr, seed=cfg.seed,
                         pretrain_epochs=cfg.pretrain_epochs, rebase=cfg.rebase,
-                        lm_polish=cfg.lm_polish, lm_steps=lm_steps, verbose=True,
-                        device=dev)
+                        lm_polish=cfg.lm_polish,
+                        lm_steps=120 if lm_steps is None else lm_steps,
+                        verbose=True, device=dev)
 
 
 def _run_plpinn(cfg, args, dev, out_dir, emit):
@@ -259,7 +276,103 @@ def _run_compare(cfg, dev, out_dir, emit):
         emit(record)
 
 
-BRANCHES = ("plpinn", "fit", "cross_potential", "compare")
+def _record(record, seconds, launches, dev):
+    """The record with `seconds` and, on the card, the launches since the
+    counter's mark."""
+    if seconds:
+        record["seconds"] = seconds
+    if dev.type == "cuda":
+        record["launches"] = launches.since()
+    return record
+
+
+def _run_two_stage(cfg, dev, emit):
+    from gpe_tpu_torch.train import train_two_stage
+
+    launches = LaunchCounter()
+    t0 = time.time()
+    res = train_two_stage(cfg.spec, cfg.beta_values, cfg.gamma_values,
+                          epochs=cfg.epochs, tol=cfg.tol, patience=cfg.patience,
+                          perturb_const=cfg.perturb_const, lr=cfg.lr, seed=cfg.seed,
+                          verbose=True, device=dev)
+    emit(_record({"experiment": cfg.name, "mu_beta": res.mu_beta,
+                  "mu_gamma": res.mu_gamma, "wall_s": round(time.time() - t0, 1)},
+                 res.seconds, launches, dev))
+
+
+def _run_beta_sweep(cfg, args, dev, out_dir, emit):
+    from gpe_tpu_torch.io import load_bundle, save_bundle
+    from gpe_tpu_torch.train import train_beta_sweep
+
+    bundle_path = os.path.join(out_dir, "bundle.pkl")
+    launches = LaunchCounter()
+    t0 = time.time()
+    seconds = None
+    if args.train or not os.path.exists(bundle_path):
+        res = train_beta_sweep(cfg.spec, cfg.beta_values, gamma=cfg.gamma_values[0],
+                               modes=cfg.modes, epochs=cfg.epochs, tol=cfg.tol,
+                               patience=cfg.patience, perturb_const=cfg.perturb_const,
+                               lr=cfg.lr, seed=cfg.seed,
+                               pretrain_epochs=cfg.pretrain_epochs, verbose=True,
+                               device=dev)
+        seconds = res.seconds
+        save_bundle(bundle_path, res, cfg.spec)
+    bundle = load_bundle(bundle_path)
+    emit(_record({"experiment": cfg.name,
+                  "mu_table_tail": {str(m): v[-1] for m, v in bundle["mu_table"].items()},
+                  "wall_s": round(time.time() - t0, 1)}, seconds, launches, dev))
+
+
+def _run_p_ramp(cfg, dev, emit):
+    from gpe_tpu_torch.train import train_p_ramp
+
+    launches = LaunchCounter()
+    t0 = time.time()
+    res = train_p_ramp(cfg.spec, cfg.p_values, cfg.gamma_values[0], mode=cfg.modes[0],
+                       epochs=cfg.epochs, tol=cfg.tol, patience=cfg.patience,
+                       lr=cfg.lr, seed=cfg.seed, pretrain_epochs=cfg.pretrain_epochs,
+                       verbose=True, device=dev)
+    emit(_record({"experiment": cfg.name, "mu_table": res.mu_table,
+                  "wall_s": round(time.time() - t0, 1)}, res.seconds, launches, dev))
+
+
+def _run_deflation(cfg, args, dev, emit):
+    from gpe_tpu_torch.train import train_deflation
+
+    launches = LaunchCounter()
+    t0 = time.time()
+    res = train_deflation(cfg.spec, cfg.gamma_values[0], n_modes=len(cfg.modes),
+                          epochs=cfg.epochs, lr=cfg.lr, seed=cfg.seed,
+                          orth_weight=500.0,
+                          polish_steps=60 if args.lm_steps is None else args.lm_steps,
+                          verbose=True, device=dev)
+    emit(_record({"experiment": cfg.name, "mu_table": res.mu_table,
+                  "wall_s": round(time.time() - t0, 1)}, res.seconds, launches, dev))
+
+
+def _run_relobralo(cfg, dev, emit):
+    import torch
+
+    from gpe_tpu_torch.train import fit_relobralo
+    from gpe_tpu_torch.train.problem import init_params, make_batch
+
+    batch = make_batch(cfg.spec, cfg.modes[0], device=dev)
+    params = init_params(cfg.spec, torch.Generator().manual_seed(cfg.seed), device=dev)
+    launches = LaunchCounter()
+    for g in cfg.gamma_values:
+        launches.mark()
+        t0 = time.perf_counter()
+        res = fit_relobralo(cfg.spec, params, batch, g, epochs=cfg.epochs, lr=cfg.lr,
+                            seed=cfg.seed)
+        params = res.params
+        emit(_record({"gamma": g, "mu": res.mu, "loss": res.best_loss,
+                      "lambdas": dict(zip(res.term_names,
+                                          res.lambda_history[-1].tolist()))},
+                     {"fit": time.perf_counter() - t0}, launches, dev))
+
+
+BRANCHES = ("plpinn", "fit", "cross_potential", "compare", "two_stage", "beta_sweep",
+            "p_ramp", "deflation", "relobralo")
 
 
 def main(argv=None):
@@ -271,10 +384,12 @@ def main(argv=None):
     ap.add_argument("--epochs", type=int, default=None)
     ap.add_argument("--modes", type=int, nargs="*", default=None)
     ap.add_argument("--gammas", type=float, nargs="*", default=None)
+    ap.add_argument("--betas", type=float, nargs="*", default=None)
     ap.add_argument("--pretrain", type=int, default=None)
     ap.add_argument("--seed", type=int, default=None)
-    ap.add_argument("--lm-steps", type=int, default=120,
-                    help="LM polish steps of an lm_polish config (default 120)")
+    ap.add_argument("--lm-steps", type=int, default=None,
+                    help="LM polish steps of an lm_polish config (default 120) "
+                         "or of each deflated state (default 60)")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
     args = ap.parse_args(argv)
 
@@ -302,6 +417,8 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, modes=tuple(args.modes))
     if args.gammas is not None:
         cfg = dataclasses.replace(cfg, gamma_values=tuple(args.gammas))
+    if args.betas is not None:
+        cfg = dataclasses.replace(cfg, beta_values=tuple(args.betas))
     if cfg.algorithm not in BRANCHES:
         raise NotImplementedError(f"algorithm {cfg.algorithm!r} is not ported yet; "
                                   "see gpe_tpu.experiments.run")
@@ -321,8 +438,18 @@ def main(argv=None):
         _run_fit(cfg, dev, emit)
     elif cfg.algorithm == "compare":
         _run_compare(cfg, dev, out_dir, emit)
-    else:
+    elif cfg.algorithm == "cross_potential":
         _run_cross_potential(cfg, args, dev, out_dir, emit)
+    elif cfg.algorithm == "two_stage":
+        _run_two_stage(cfg, dev, emit)
+    elif cfg.algorithm == "beta_sweep":
+        _run_beta_sweep(cfg, args, dev, out_dir, emit)
+    elif cfg.algorithm == "p_ramp":
+        _run_p_ramp(cfg, dev, emit)
+    elif cfg.algorithm == "deflation":
+        _run_deflation(cfg, args, dev, emit)
+    else:
+        _run_relobralo(cfg, dev, emit)
     _write_summary(out_dir, records)
     return 0
 

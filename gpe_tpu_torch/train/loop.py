@@ -79,10 +79,13 @@ def _run_where(cond, a, b):
         lambda x, y: torch.where(cond.reshape(-1, *([1] * (x.ndim - 1))), x, y), a, b)
 
 
-def _as_device_scalar(v, device) -> torch.Tensor:
-    if isinstance(v, torch.Tensor):
-        return v.to(device=device, dtype=torch.float32).reshape(())
-    return torch.full((), float(v), dtype=torch.float32, device=device)
+def _as_device_f32(v, device, scalar: bool = True) -> torch.Tensor:
+    """v rounded to f32 on `device`: a 0-dim tensor when `scalar` or when v
+    holds one number, else the f32 array as given (the two-stage trainer's
+    (β, γ) pair, which its own loss unpacks; the fused kernels take a
+    scalar γ)."""
+    t = torch.as_tensor(v, dtype=torch.float32).to(device)
+    return t.reshape(()) if scalar or t.numel() == 1 else t
 
 
 def fit(loss_fn: Callable, optimizer, params, batch, gamma, scale,
@@ -90,15 +93,17 @@ def fit(loss_fn: Callable, optimizer, params, batch, gamma, scale,
         check_every: int = 512, value_and_grad_fn: Callable = None) -> FitResult:
     """Train until convergence or `epochs`, reference early-stop semantics.
 
-    loss_fn(params, batch, gamma, scale) -> (total, aux with 'mu').
+    loss_fn(params, batch, gamma, scale) -> (total, aux with 'mu'); gamma
+    is rounded to f32 and reaches it as a scalar tensor or, without a fused
+    gradient, as the f32 array it was given (`_as_device_f32`).
     `value_and_grad_fn` (the contract of `value_and_grad(loss_fn)`) swaps in
     a custom gradient, e.g. the fused CUDA kernels; a stateful one
     (`.stateful`, `.init_state`) is initialised here and threaded through
     the steps. `optimizer` has init(params) / update(grads, state, value)."""
     pin_full_f32()
     dev = batch["x"].device
-    gamma = _as_device_scalar(gamma, dev)
-    scale = _as_device_scalar(scale, dev)
+    gamma = _as_device_f32(gamma, dev, scalar=value_and_grad_fn is not None)
+    scale = _as_device_f32(scale, dev)
     check_every = min(check_every, epochs)
     vag = value_and_grad_fn or value_and_grad(loss_fn)
     stateful = bool(getattr(vag, "stateful", False))

@@ -408,6 +408,50 @@ def test_kernels_on_the_gravity_well_batch(cuda_device, mode, gamma, scale):
     np.testing.assert_allclose(float(aux["mu"]), float(raux["mu"]), rtol=1e-4)
 
 
+@pytest.mark.parametrize("beta", [1.0, 20.0, 100.0])
+def test_relaxed_vag_at_a_rescaled_potential(cuda_device, monkeypatch, beta):
+    """vary_beta_gravity_well's batch with its unit potential scaled by β
+    on the host (`beta_sweep.beta_scaled`, up to V = 100·x): K1 and K2
+    against their plain versions (sums rel 1e-4, gradients normalised
+    2e-4), and the default relaxed fused step through `fit` — one K1 for
+    its initial state, one K2 a step — whose first reported μ is autograd's
+    at the same params (rtol 1e-4)."""
+    from gpe_tpu_torch.experiments.configs import EXPERIMENTS
+    from gpe_tpu_torch.train.beta_sweep import beta_scaled
+    from gpe_tpu_torch.train.loop import fit
+    from gpe_tpu_torch.train.optimizers import make_optimizer
+
+    for var in ("GPE_TPU_TORCH_NO_FUSED", "GPE_TPU_TORCH_NO_RELAXED",
+                "GPE_TPU_TORCH_RELAXED_FUSED"):
+        monkeypatch.delenv(var, raising=False)
+    spec = EXPERIMENTS["vary_beta_gravity_well"].spec
+    batch = beta_scaled(tprob.make_batch(spec, 0, device=cuda_device), beta)
+    rng = np.random.default_rng(int(beta))
+    params = params_from_numpy(
+        [(rng.normal(0.0, 1.0 / np.sqrt(k), (k, m)), rng.normal(0.0, 0.1, m))
+         for k, m in zip(spec.layers[:-1], spec.layers[1:])], device=cuda_device)
+    phys = (spec.activation, spec.p, spec.kinetic, spec.nonlinearity)
+    args = (params, batch["x"], batch["V"], batch["w"], 0.0, 0.01)
+    base = (batch["base_val"], batch["base_lap"])
+    got = k1.collocation_sums(*args, *base, *phys)
+    want = k1.collocation_sums_plain(*args, *base, *phys)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4)
+    cots = k1.sums_to_loss(got, batch["x"].shape[0], spec.norm_weight)[3]
+    grads, _ = k2.collocation_grads(*args, cots, *base, *phys)
+    _grads_close(grads, k2.collocation_grads_plain(*args, cots, *base, *phys)[0])
+    vag = tprob.make_fused_value_and_grad(spec, device=cuda_device)
+    assert vag is not None and vag.stateful
+    k1.collocation_sums.launches = 0
+    k2.collocation_grads.launches = 0
+    opt = make_optimizer("adam", 1e-3, clip_norm=1.0)
+    res = fit(tprob.make_loss_fn(spec), opt, params, batch, 0.0, 0.01, epochs=20,
+              tol=-1.0, patience=10 ** 9, check_every=10, value_and_grad_fn=vag)
+    assert (k1.collocation_sums.launches, k2.collocation_grads.launches) == (1, 20)
+    assert np.all(np.isfinite(res.loss_history)) and np.all(np.isfinite(res.mu_history))
+    _, aux = tprob.make_loss_fn(spec)(params, batch, 0.0, 0.01)
+    np.testing.assert_allclose(res.mu_history[0], float(aux["mu"]), rtol=1e-4)
+
+
 def _ensemble_case(R, per_run_gamma, device):
     """A 1,000-point harmonic trap, [1,32,32,1] shifted_tanh, R run-stacked
     nets of numpy seeds with per-run q-scales; γ 20, or 0…100 per run."""

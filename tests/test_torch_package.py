@@ -78,7 +78,7 @@ def test_entry_points_without_device_raise_when_there_is_no_card(tmp_path):
 
     from gpe_tpu_torch.experiments import paper_tables, run
     from gpe_tpu_torch.ops import geometry
-    from gpe_tpu_torch.train import compare
+    from gpe_tpu_torch.train import beta_sweep, compare, deflation, p_ramp, two_stage
     from gpe_tpu_torch.physics.bases import airy_table
     from gpe_tpu_torch.validate import fdm, rotating
     from gpe_tpu_torch.validate.imaginary_time import imaginary_time_gpe
@@ -101,7 +101,13 @@ def test_entry_points_without_device_raise_when_there_is_no_card(tmp_path):
                  lambda: run.main(["multirun_box_mode0", "--epochs", "1",
                                    "--out", str(tmp_path)]),
                  lambda: paper_tables.main(["--epochs", "1", "--out", str(tmp_path)]),
+                 lambda: run.main(["vary_beta_gravity_well", "--epochs", "1",
+                                   "--out", str(tmp_path)]),
                  lambda: compare.train_single_model(spec, 0.0, epochs=1),
+                 lambda: beta_sweep.train_beta_sweep(spec, [1.0], epochs=1),
+                 lambda: two_stage.train_two_stage(spec, [1.0], [0.0], epochs=1),
+                 lambda: p_ramp.train_p_ramp(spec, [3.0], 0.0, epochs=1),
+                 lambda: deflation.train_deflation(spec, 0.0, n_modes=1, epochs=1),
                  lambda: airy_table(),
                  lambda: geometry.disk_points((0.0, 0.0), 1.0, 8)):
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -254,10 +254,14 @@ def test_configs_match_the_jax_registry():
             "linear_1d_sanity", "gpe2d_ground_state", "box_paper", "gravity_well_paper",
             "gpe2d_circle", "harmonic_self_adaptive", "gpe2d_anti_trivial",
             "riesz_mode0", "mode0_all_potentials", "compare_harmonic_mode0",
-            "multirun_harmonic_mode0", "multirun_box_mode0"} <= set(EXPERIMENTS)
-    assert len(WAITING) == 14
+            "multirun_harmonic_mode0", "multirun_box_mode0", "vary_beta_harmonic",
+            "vary_beta_gravity_well", "vary_beta_box_gaussian", "two_stage_beta_gamma",
+            "p_ramp_harmonic", "deflation_harmonic", "deflation_2d",
+            "gpe2d_relobralo"} <= set(EXPERIMENTS)
+    assert len(WAITING) == 6
     for what in ("basis", "ansatz", "geometry", "gpe_terms", "self_adaptive",
-                 "fit branch", "cross-potential", "compare"):
+                 "fit branch", "cross-potential", "compare", "beta_sweep",
+                 "two_stage", "p_ramp", "deflation", "balanced"):
         assert not any(what in v for v in WAITING.values()), what
     cfg_fields = [f.name for f in fields(next(iter(EXPERIMENTS.values())))]
     assert cfg_fields == [f.name for f in fields(next(iter(JEXP.values())))]
