@@ -65,6 +65,16 @@ port's three paths on the card:
    configs of the slice (the box sweeps, two-stage, p-ramp, both
    deflations, ReLoBRaLo) at full width and cut depth, none of which
    launches a kernel.
+8. collocation-sharded training over torch.distributed, two gloo ranks on
+   the one card (spawned by `experiments/mesh_check.run_cases`): (a) K2's
+   psum-aware mode at the main shape, the exact and the default relaxed
+   vag over two steps against the unsharded vags; (b) `fit(mesh=)` with the
+   fused gradient, 200 steps, against the unsharded fused fit, timed with
+   its all-reduces; (c) `fit_ensemble(mesh=)` of six runs at
+   `harmonic_paper`'s shape on K3 against the unsharded ensembles of each
+   rank's runs (and, in its first step, of all six); (d) the
+   runner on `plpinn_sharded_dp` at cut depth on a world-size-1 NCCL mesh,
+   μ(0) against 1; then K2 timed at one rank's shard (25,088 points).
 
 A kernel row's "ms" is device time: CUDA events around replays of a CUDA
 graph of one wrapper call; "call_ms" is back-to-back calls, host work
@@ -1684,6 +1694,317 @@ def phase_trainer_configs(dev):
     return total, seconds
 
 
+# phase 8: collocation-sharded training over torch.distributed, two gloo
+# ranks on the one card (NCCL refuses two ranks on one card). The
+# psum-aware K2 against the unsharded K2 at tests/test_fused_sharded.py's
+# same-kernel bounds (total rtol 1e-6, gradients normalised 1e-5, relaxed
+# state 1e-5), the relaxed step's exact K1 correctors (MESH_CORRECTORS)
+# included. All from random params, where the loss is large: near a
+# converged net the loss is a small difference of large sums, and any
+# change of summation order (the unsharded vag on reordered points too)
+# moves the total by 3e-6 and the gradients by 5e-5, above those bounds
+# (experiments/mesh_controls.py, "conditioning").
+# The corrector walk takes MESH_CORRECTOR_LR, small enough that four steps
+# stay finite from that start (1e-3 overflows by the third).
+#
+# The sharded fit against the unsharded one at its fit bound (1e-4) over
+# its first MESH_FIT_GATE_STEPS steps: at this shape any change of
+# summation order (the unsharded fit on its points reordered too) moves the
+# loss history by more than 1e-4 after 12–75 steps and the best loss of 200
+# steps by 0.07–42% (NVIDIA H100 80GB HBM3, 700 W), so the 200-step best
+# loss is printed beside the reordered fit's, not held. Its μ_best is held
+# at MESH_FIT_MU_RTOL: sound runs, sharded or reordered, left it
+# 9.4e-6–4.9e-4 from the unsharded fit over three starts and both step
+# modes, 2.2e-5 (sharded) and 9.5e-5 (reordered) at this start, while the
+# relaxed cotangents built with the local point count moved it by 2.7e-3
+# (experiments/mesh_controls.py, same card; PERF.md §6).
+#
+# The sharded ensemble against the unsharded ensembles of each rank's runs
+# at 1e-5, and against the unsharded ensemble of all runs in its first step
+# only: the batched products of the step's plain parts (the boundary term,
+# the fresh S₂, S₃) round by the run count, and a random start amplifies it
+# (73% in the loss after 100 steps on that card).
+MESH_RANKS = 2
+PSUM_TOTAL_RTOL, PSUM_GRAD_TOL, PSUM_STATE_RTOL = 1e-6, 1e-5, 1e-5
+MESH_FIT_RTOL, MESH_ENS_RTOL = 1e-4, 1e-5
+MESH_FIT_STEPS, MESH_FIT_GATE_STEPS, MESH_ENS_STEPS = 200, 10, 100
+MESH_FIT_MU_RTOL = 1e-3
+MESH_CORRECTORS = dict(refresh_every=2, exact_until=2)   # K1 at steps 1 and 2
+MESH_CORRECTOR_LR = 1e-6    # the walk's step: the loss 406 → 170 in 4 steps
+MESH_RUNNER = ["--epochs", "300", "--gammas", "0", "1", "2", "--pretrain", "300"]
+
+
+def _flat_err(got, want, layers):
+    """(max abs error, max over leaves of max|Δ| / max|want|) of flat grads."""
+    import numpy as np
+    sizes = [n for k, m in zip(layers[:-1], layers[1:]) for n in (k * m, m)]
+    cuts = np.cumsum(sizes)[:-1]
+    worst_abs, worst_norm = 0.0, 0.0
+    for g, w in zip(np.split(got, cuts), np.split(want, cuts)):
+        d = float(np.abs(g - w).max())
+        worst_abs = max(worst_abs, d)
+        worst_norm = max(worst_norm, d / (float(np.abs(w).max()) + 1e-30))
+    return worst_abs, worst_norm
+
+
+def phase_mesh(dev):
+    """(a) K2's psum-aware mode at the main shape (50,176 points,
+    [2,128,128,128,1], γ 5, s 0.05) over MESH_RANKS gloo ranks on this
+    card: two steps of the exact vag and of the default relaxed one (fresh
+    values, extrapolation), and four of the relaxed one with its exact K1
+    correctors (MESH_CORRECTORS, walked at MESH_CORRECTOR_LR), against the
+    unsharded vags on the same card; K2 once a step on each rank, K1 once
+    a step (exact), once a fit (relaxed) or once a fit and once a
+    corrector. (b) `fit(mesh=, value_and_grad_fn=
+    make_fused_value_and_grad(spec, n_shards=2))`, MESH_FIT_STEPS Adam
+    steps (clip 1.0) at γ 5 from the net pretrained 300 steps to the base
+    (a ramp's start), against the unsharded fused fit over the first
+    MESH_FIT_GATE_STEPS steps and in its μ_best after MESH_FIT_STEPS
+    (MESH_FIT_MU_RTOL), printed beside the unsharded fit on reordered
+    points; ms a step of both and of the step's all-reduces. (c)
+    `fit_ensemble(mesh=)` of six runs at `harmonic_paper`'s shape
+    (runs_shape's params, per-run γ and scale, the mode-0 base) on K3,
+    three runs a rank, against the unsharded ensembles of each rank's three
+    runs and, in its first step, against the unsharded six-run ensemble.
+    (d) the runner on `plpinn_sharded_dp` at cut depth (MESH_RUNNER) on a
+    world-size-1 NCCL mesh in this process, |μ(0) − 1| ≤ CROSS_ATOL.
+    Returns the `fused_grad_psum` kernel row (K2 at the local shard against
+    its plain version: device ms, plain and nested-autograd ms, bound) and
+    the phase's numbers."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from gpe_tpu_torch.bench import nested_autograd_sums
+    from gpe_tpu_torch.experiments import run
+    from gpe_tpu_torch.experiments.mesh_check import run_cases, walk
+    from gpe_tpu_torch.io import load_bundle
+    from gpe_tpu_torch.kernels import fused_grad as k2
+    from gpe_tpu_torch.kernels import fused_residual as k1
+    from gpe_tpu_torch.models.mlp import mlp_apply
+    from gpe_tpu_torch.train.loop import fit, fit_ensemble
+    from gpe_tpu_torch.train.optimizers import make_optimizer
+    from gpe_tpu_torch.train.pretrain import pretrain_to_base
+    from gpe_tpu_torch.train.problem import (base_triple, make_batch,
+                                             make_fused_value_and_grad, make_loss_fn)
+
+    cfg, spec, batch, params = main_shape(dev)
+    np_params = [(w.cpu().numpy(), b.cpu().numpy()) for w, b in params]
+    gamma, scale = 5.0, 0.05
+    pre, _ = pretrain_to_base(params, batch["x"], base_triple(spec, 0, batch["x"]).value,
+                              spec.activation, epochs=300, lr=1e-3)
+    with torch.no_grad():
+        pre_scale = cfg.perturb_const / float(torch.max(mlp_apply(pre, batch["x"],
+                                                                  spec.activation)))
+    np_pre = [(w.cpu().numpy(), b.cpu().numpy()) for w, b in pre]
+    _, rspec, _, rparams, rgammas, rscales = runs_shape(dev)
+    rbatch = make_batch(rspec, 0, device=dev)
+    np_rparams = [(w.cpu().numpy(), b.cpu().numpy()) for w, b in rparams]
+    cases = [
+        ("exact", "vag", dict(spec=spec, params=np_params, gamma=gamma, scale=scale,
+                              relaxed=False, steps=2)),
+        ("relaxed", "vag", dict(spec=spec, params=np_params, gamma=gamma, scale=scale,
+                                relaxed=None, steps=2)),
+        ("corrector", "vag", dict(spec=spec, params=np_params, gamma=gamma, scale=scale,
+                                  relaxed=None, steps=4, lr=MESH_CORRECTOR_LR,
+                                  **MESH_CORRECTORS)),
+        ("fit", "fit", dict(spec=spec, params=np_pre, gamma=gamma, scale=pre_scale,
+                            epochs=MESH_FIT_STEPS, check_every=MESH_FIT_STEPS,
+                            fused=True, lr=cfg.lr, reps=50)),
+        ("ens", "ensemble", dict(spec=rspec, params_b=np_rparams,
+                                 gamma=rgammas.cpu().numpy(),
+                                 scales=rscales.cpu().numpy(), epochs=MESH_ENS_STEPS,
+                                 check_every=MESH_ENS_STEPS, fused=True, relaxed=None)),
+    ]
+    t0 = time.perf_counter()
+    ranks = run_cases(cases, nprocs=MESH_RANKS, backend="gloo")
+    spawn_s = time.perf_counter() - t0
+    log(f"mesh: {MESH_RANKS} gloo ranks on {torch.cuda.get_device_name(0)}, "
+        f"{spawn_s:.1f} s for the spawn and cases (a)–(c)")
+    for key in ranks[0]:
+        if not key.endswith("/s") and not key.endswith("_ms") \
+                and not np.array_equal(ranks[0][key], ranks[1][key]):
+            raise AssertionError(f"mesh: {key} differs across the ranks")
+
+    # (a) the psum-aware vag against the unsharded one
+    worst_abs = 0.0
+    for label, relaxed, kw, steps, want_k1, lr in (
+            ("exact", False, {}, 2, 2, 1e-3),
+            ("relaxed", None, {}, 2, 1, 1e-3),
+            ("corrector", None, MESH_CORRECTORS, 4, 3, MESH_CORRECTOR_LR)):
+        want = walk(make_fused_value_and_grad(spec, device=dev, relaxed=relaxed, **kw),
+                    params, batch, gamma, scale, steps=steps, lr=lr)
+        r = ranks[0]
+        t_rel = float(np.abs(r[f"{label}/total"] / want["total"] - 1).max())
+        g_abs, g_norm = 0.0, 0.0
+        for got, w in zip(r[f"{label}/grads"], want["grads"]):
+            a, nrm = _flat_err(got, w, spec.layers)
+            g_abs, g_norm = max(g_abs, a), max(g_norm, nrm)
+        s_rel = (float(np.abs(r[f"{label}/state"] / want["state"] - 1).max())
+                 if "state" in want else 0.0)
+        k1_n = [int(x[f"{label}/launches_fused_residual"]) for x in ranks]
+        k2_n = [int(x[f"{label}/launches_fused_grad"]) for x in ranks]
+        log(f"mesh (a) {label} vag, {steps} steps: total max rel {t_rel:.2e}, grads max|Δ| "
+            f"{g_abs:.3e} normalised {g_norm:.2e}, state max rel {s_rel:.2e}; "
+            f"launches per rank K1 {k1_n} K2 {k2_n}")
+        if not np.isfinite(want["total"]).all() or not (
+                t_rel <= PSUM_TOTAL_RTOL and g_norm <= PSUM_GRAD_TOL
+                and s_rel <= PSUM_STATE_RTOL) or k2_n != [steps] * 2 \
+                or k1_n != [want_k1] * 2:
+            raise AssertionError(f"mesh (a) {label}: total {t_rel:.3e}, grads "
+                                 f"{g_norm:.3e}, state {s_rel:.3e}, K1 {k1_n}, K2 {k2_n}")
+        worst_abs = max(worst_abs, g_abs)
+
+    # (b) the sharded fused fit against the unsharded one
+    loss_fn = make_loss_fn(spec)
+    vag = make_fused_value_and_grad(spec, device=dev)
+
+    def unsharded(b):
+        return fit(loss_fn, make_optimizer("adam", cfg.lr, clip_norm=1.0), pre, b,
+                   gamma, pre_scale, epochs=MESH_FIT_STEPS, tol=0.0, patience=10 ** 9,
+                   check_every=MESH_FIT_STEPS, value_and_grad_fn=vag)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = unsharded(batch)
+    torch.cuda.synchronize()
+    ref_ms = 1e3 * (time.perf_counter() - t0) / MESH_FIT_STEPS
+    n = batch["x"].shape[0]
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(1)).to(dev)
+    reordered = unsharded({k: v[perm].contiguous() if v.shape[:1] == (n,) else v
+                           for k, v in batch.items()})
+    r = ranks[0]
+    k = MESH_FIT_GATE_STEPS
+    head = max(float(np.abs(r["fit/loss_history"][:k] / ref.loss_history[:k] - 1).max()),
+               float(np.abs(r["fit/mu_history"][:k] / ref.mu_history[:k] - 1).max()))
+    def end(best_loss, mu_best):
+        return {"best_loss": abs(best_loss / ref.best_loss - 1),
+                "mu_best": abs(mu_best / ref.mu_best - 1)}
+
+    end_rel = {"sharded": end(float(r["fit/best_loss"]), float(r["fit/mu_best"])),
+               "reordered": end(reordered.best_loss, reordered.mu_best)}
+    fit_k2 = [int(x["fit/launches_fused_grad"]) for x in ranks]
+    fit_k1 = [int(x["fit/launches_fused_residual"]) for x in ranks]
+    fit_ms = [1e3 * float(x["fit/s"]) for x in ranks]
+    ar_ms = [float(x["fit/allreduce_grads_ms"]) + float(x["fit/allreduce_sums_ms"])
+             for x in ranks]
+    log(f"mesh (b) fit(mesh=), {MESH_FIT_STEPS} relaxed fused steps from the pretrained "
+        f"net: the first {k} steps' loss and μ max rel {head:.2e}; after "
+        f"{MESH_FIT_STEPS}, best_loss and μ_best rel to the unsharded fit "
+        f"{end_rel['sharded']}, of the unsharded fit on reordered points "
+        f"{end_rel['reordered']}; ms/step sharded {[round(m, 4) for m in fit_ms]} vs "
+        f"unsharded {ref_ms:.4f}; all-reduces {[round(m, 4) for m in ar_ms]} ms a step; "
+        f"launches per rank K1 {fit_k1} K2 {fit_k2}")
+    if not head <= MESH_FIT_RTOL \
+            or not end_rel["sharded"]["mu_best"] <= MESH_FIT_MU_RTOL or fit_k2 != [MESH_FIT_STEPS] * 2 or fit_k1 != [1, 1] \
+            or not math.isfinite(float(r["fit/best_loss"])):
+        raise AssertionError(f"mesh (b): {head:.3e}, {end_rel['sharded']}, K1 {fit_k1}, "
+                             f"K2 {fit_k2}")
+    fit_rel = {"first_steps": head, **end_rel}
+
+    # (c) the sharded ensemble against the unsharded ensembles of each rank's
+    # runs, and against the unsharded ensemble of all six runs
+    rloss = make_loss_fn(rspec)
+    rvag = make_fused_value_and_grad(rspec, device=dev)
+
+    def ensemble(a, b):
+        return fit_ensemble(rloss, make_optimizer("adam", cfg.lr, clip_norm=1.0),
+                            tuple((w[a:b], c[a:b]) for w, c in rparams), rbatch,
+                            rgammas[a:b], rscales[a:b], epochs=MESH_ENS_STEPS, tol=0.0,
+                            patience=10 ** 9, check_every=MESH_ENS_STEPS,
+                            value_and_grad_fn=rvag)
+
+    R = rscales.shape[0]
+    per = R // MESH_RANKS
+    blocks = [ensemble(i * per, (i + 1) * per) for i in range(MESH_RANKS)]
+    whole = ensemble(0, R)
+    keys = ("loss_history", "mu_history", "mu_best")
+    ens_rel = {k: float(np.abs(r[f"ens/{k}"] / np.concatenate(
+        [getattr(b, k) for b in blocks]) - 1).max()) for k in keys}
+    whole_rel = {k: float(np.abs(r[f"ens/{k}"] / getattr(whole, k) - 1).max())
+                 for k in keys}
+    first = float(np.abs(r["ens/loss_history"][:, 0] / whole.loss_history[:, 0] - 1).max())
+    ens_k3 = [int(x["ens/launches_fused_grad_runs"]) for x in ranks]
+    ens_k3s = [int(x["ens/launches_fused_residual_runs"]) for x in ranks]
+    log(f"mesh (c) fit_ensemble(mesh=), {R} runs, {MESH_ENS_STEPS} steps: max rel to "
+        f"the unsharded ensembles of each rank's {per} runs {ens_rel}; to the "
+        f"unsharded {R}-run ensemble {whole_rel} (first step's loss {first:.2e}); K3 "
+        f"launches per rank: grads {ens_k3}, sums {ens_k3s}; "
+        f"{float(r['ens/s']):.2f} s a rank")
+    if max(ens_rel.values()) > MESH_ENS_RTOL or first > MESH_ENS_RTOL \
+            or ens_k3 != [MESH_ENS_STEPS] * 2 or ens_k3s != [1, 1]:
+        raise AssertionError(f"mesh (c): {ens_rel}, first {first:.3e}, K3 {ens_k3}, "
+                             f"{ens_k3s}")
+    ens_rel = {"rank_blocks": ens_rel, "whole": whole_rel, "whole_first_step": first}
+
+    # (d) the runner on a world-size-1 NCCL mesh
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        rc = run.main(["plpinn_sharded_dp", "--train", "--out", out] + MESH_RUNNER)
+        runner_s = time.perf_counter() - t0
+        exp = os.path.join(out, "plpinn_sharded_dp")
+        with open(os.path.join(exp, "summary.json")) as f:
+            rec = json.load(f)
+        mus = dict(load_bundle(os.path.join(exp, "bundle.pkl"))["mu_table"][0])
+    dist.destroy_process_group()
+    err0 = abs(mus[0.0] - 1.0)
+    log(f"mesh (d) run.py plpinn_sharded_dp ({' '.join(MESH_RUNNER)}): rc {rc}, "
+        f"{runner_s:.1f} s, μ per γ {mus}, |μ(0) − 1| = {err0:.3e}; record "
+        f"{json.dumps(rec)}")
+    if rc != 0 or rec.get("mesh_devices") != 1 or not err0 <= CROSS_ATOL \
+            or not all(math.isfinite(m) for m in mus.values()):
+        raise AssertionError(f"mesh (d): rc {rc}, μ {mus}, record {rec}")
+
+    # the kernel row: K2 at one rank's shard of the main shape
+    half = batch["x"].shape[0] // MESH_RANKS
+    kw = dict(activation=spec.activation, p=spec.p, kinetic=spec.kinetic,
+              nonlinearity=spec.nonlinearity)
+    loc = {k: batch[k][:half].contiguous() for k in ("x", "V", "w", "base_val",
+                                                     "base_lap")}
+    args = (loc["x"], loc["V"], loc["w"])
+    base = (loc["base_val"], loc["base_lap"])
+    sums = k1.collocation_sums(params, *args, gamma, scale, *base, **kw)
+    cots = k1.sums_to_loss(sums, batch["x"].shape[0], spec.norm_weight)[3]
+    leaves = [t.detach().requires_grad_(True) for pair in params for t in pair]
+    pairs = tuple((leaves[i], leaves[i + 1]) for i in range(0, len(leaves), 2))
+
+    def library():
+        s = nested_autograd_sums(pairs, loc, gamma, scale, spec.activation, spec.p,
+                                 spec.kinetic, spec.nonlinearity)
+        return torch.autograd.grad(torch.sum(cots * s), leaves)
+
+    got, _ = k2.collocation_grads(params, *args, gamma, scale, cots, *base, **kw)
+    plain, _ = k2.collocation_grads_plain(params, *args, gamma, scale, cots, *base, **kw)
+    torch.cuda.synchronize()
+    p_abs, p_norm = _grad_err(got, plain)
+    if not p_norm <= K2_TOL:
+        raise AssertionError(f"K2 at the local shard: {p_norm:.3e} from its plain version")
+    ms, call_ms = kernel_ms(lambda: k2.collocation_grads(params, *args, gamma, scale,
+                                                         cots, *base, **kw), 20)
+    plain_ms = time_ms(lambda: k2.collocation_grads_plain(
+        params, *args, gamma, scale, cots, *base, **kw), 10)
+    lib_ms = time_ms(library, 3)
+    b_ms, b_by = bound(spec.layers, half, grad=True)
+    log(f"K2 at the local shard ({half} points): grads max|Δ| {p_abs:.3e} from its "
+        f"plain version, normalised {p_norm:.2e}; kernel {ms:.4f} ms (per call "
+        f"{call_ms:.4f}), plain {plain_ms:.4f} ms, nested autograd {lib_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    row = {"name": "fused_grad_psum", "route": "cuda",
+           "source": "gpe_tpu_torch/csrc/fused_grad.cu",
+           "replaces": "gpe_tpu/pallas/fused_grad.py:460",
+           "launches": sum(fit_k2), "launches_per_rank": fit_k2,
+           "max_abs_err": p_abs, "max_abs_err_vs_unsharded_k2": worst_abs,
+           "ms": ms, "call_ms": call_ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": lib_ms, "local_points": half, "ranks": MESH_RANKS}
+    numbers = {"spawn_s": spawn_s, "fit_ms": fit_ms, "unsharded_fit_ms": ref_ms,
+               "allreduce_ms": ar_ms, "fit_rel": fit_rel, "ensemble_rel": ens_rel,
+               "ensemble_k3_per_rank": ens_k3, "runner_s": runner_s,
+               "runner_mu": mus, "runner_mu0_err": err0}
+    return row, numbers
+
+
 def main() -> int:
     try:
         import torch
@@ -1769,11 +2090,16 @@ def main() -> int:
     t0 = time.perf_counter()
     trainer_launches, trainer_s = phase_trainer_configs(dev)
     phases["trainer_configs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    psum_row, mesh = phase_mesh(dev)
+    phases["mesh"] = time.perf_counter() - t0
+    kernels.append(psum_row)
     by_path = {"cross_potential": cross_launches, "gravity_well_packed": gw_launches,
                "comparison": comparison, "beta_sweep": sweep_launches,
                "trainer_configs": trainer_launches}
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        if "launches" not in k:
+            k["launches"] = launches[k["name"]]
         for path, counts in by_path.items():
             if k["name"] in counts:
                 k.setdefault("launches_by_path", {})[path] = counts[k["name"]]
@@ -1784,7 +2110,8 @@ def main() -> int:
                     "fit_ensemble": ens_rows, "compare_configs_s": config_s,
                     "run_family": {k: family[k] for k in ("wall_s", "seconds",
                                                           "launches")},
-                    "beta_sweep": sweep, "trainer_configs_s": trainer_s}))
+                    "beta_sweep": sweep, "trainer_configs_s": trainer_s,
+                    "mesh": mesh}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

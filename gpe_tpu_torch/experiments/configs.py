@@ -85,6 +85,13 @@ _register(ExperimentConfig(
     name="harmonic_negative_gamma",              # ..._negative_interaction_strength.py
     spec=_PAPER_1D, gamma_values=tuple(-0.5 * k for k in range(41)), modes=(0,)))
 
+_register(ExperimentConfig(
+    name="plpinn_sharded_dp",                    # collocation-sharded training:
+    # the paper 1D spec with its 4,000 points sharded over the ranks of the
+    # process group (torchrun), the quadrature sums all-reduced
+    spec=_PAPER_1D, gamma_values=_gammas(11, 1.0), modes=(0,), epochs=3001,
+    use_mesh=True))
+
 for _p in (4, 8, 16):
     _register(ExperimentConfig(
         name=f"harmonic_p{_p}",
@@ -261,8 +268,6 @@ _HELMHOLTZ = "the Helmholtz trainer (gpe_tpu.helmholtz.problem.train_helmholtz)"
 # the JAX registry's other configurations and what each waits for
 WAITING = {
     "deeponet_harmonic": "the DeepONet trainer (gpe_tpu.deeponet.model.train_deeponet)",
-    "plpinn_sharded_dp": "collocation-sharded training (gpe_tpu.parallel.make_mesh, "
-                         "train_plpinn(mesh=))",
     "helmholtz_square": _HELMHOLTZ,
     "helmholtz_circle": _HELMHOLTZ,
     "helmholtz_inverse_k": _HELMHOLTZ,

@@ -11,7 +11,12 @@
   `lm_polish`, score a 2D harmonic run's LM-polished μ against the
   imaginary-time oracle (384² grid, τ 2e-3, Richardson order 2); one JSON
   line with the JAX record's keys (`experiment`, `mu_table_tail`,
-  `lm_polished` with `mu_ref`/`mu_abs_err`, `wall_s`).
+  `lm_polished` with `mu_ref`/`mu_abs_err`, `mesh_devices`, `wall_s`). A
+  `use_mesh` config (`plpinn_sharded_dp`) shards the collocation points
+  over the ranks of the process group that `torchrun` describes
+  (`torchrun --nproc_per_node N -m gpe_tpu_torch.experiments.run
+  plpinn_sharded_dp`; NCCL on the card, gloo with `--cpu`), or over a
+  world-size-1 group in a plain process; rank 0 alone writes and prints.
 - `fit`: one model trained per γ of the config, warm-started from the last
   iterate, by Adam (clip 1.0) on the spec's loss (self-adaptive weighting,
   anti-trivial and Riesz terms, disk geometry); one JSON line per γ with
@@ -121,19 +126,33 @@ def cross_potential_families(spec):
     }
 
 
-def _train(cfg, spec, modes, dev, lm_steps):
+def _train(cfg, spec, modes, dev, lm_steps, mesh=None):
     from gpe_tpu_torch.train import train_plpinn
 
     return train_plpinn(spec, cfg.gamma_values, modes, epochs=cfg.epochs,
                         tol=cfg.tol, patience=cfg.patience,
                         perturb_const=cfg.perturb_const, lr=cfg.lr, seed=cfg.seed,
                         pretrain_epochs=cfg.pretrain_epochs, rebase=cfg.rebase,
-                        lm_polish=cfg.lm_polish,
+                        mesh=mesh, lm_polish=cfg.lm_polish,
                         lm_steps=120 if lm_steps is None else lm_steps,
                         verbose=True, device=dev)
 
 
-def _run_plpinn(cfg, args, dev, out_dir, emit):
+def _mesh(cpu: bool):
+    """The collocation mesh of a `use_mesh` config: the group `torchrun`
+    describes, else a world-size-1 group; gloo on the CPU, NCCL on the card."""
+    from gpe_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
+
+    backend = "gloo" if cpu else "nccl"
+    initialize_multihost(backend=backend)
+    mesh = make_mesh(device="cpu" if cpu else None, backend=backend)
+    if mesh.rank == 0:
+        print(f"mesh: {mesh.size} ranks ({backend}), the collocation points "
+              f"sharded on axis {mesh.axis_names[0]!r}", flush=True)
+    return mesh
+
+
+def _run_plpinn(cfg, args, dev, out_dir, emit, mesh=None):
     from gpe_tpu_torch.io import load_bundle, save_bundle
 
     bundle_path = os.path.join(out_dir, "bundle.pkl")
@@ -141,11 +160,15 @@ def _run_plpinn(cfg, args, dev, out_dir, emit):
     t0 = time.time()
     polished, seconds = None, {}
     if args.train or not os.path.exists(bundle_path):
-        res = _train(cfg, cfg.spec, cfg.modes, dev, args.lm_steps)
+        res = _train(cfg, cfg.spec, cfg.modes, dev, args.lm_steps, mesh)
         polished, seconds = res.polished, dict(res.seconds)
+        if mesh is not None and mesh.rank != 0:
+            return
         save_bundle(bundle_path, res, cfg.spec)
     bundle = load_bundle(bundle_path)
     extra = {}
+    if mesh is not None:
+        extra["mesh_devices"] = mesh.size
     if polished:
         extra["lm_polished"] = {
             m: {k: v for k, v in pol.items() if k not in ("params", "base_val")}
@@ -423,17 +446,22 @@ def main(argv=None):
         raise NotImplementedError(f"algorithm {cfg.algorithm!r} is not ported yet; "
                                   "see gpe_tpu.experiments.run")
     dev = resolve_device("cpu" if args.cpu else None)
+    mesh = _mesh(args.cpu) if cfg.use_mesh else None
+    if mesh is not None:
+        dev = mesh.device
+    lead = mesh is None or mesh.rank == 0
 
     out_dir = os.path.join(args.out, cfg.name)
     os.makedirs(out_dir, exist_ok=True)
     records = []
 
     def emit(record):
-        print(json.dumps(record, default=str), flush=True)
-        records.append(record)
+        if lead:
+            print(json.dumps(record, default=str), flush=True)
+            records.append(record)
 
     if cfg.algorithm == "plpinn":
-        _run_plpinn(cfg, args, dev, out_dir, emit)
+        _run_plpinn(cfg, args, dev, out_dir, emit, mesh)
     elif cfg.algorithm == "fit":
         _run_fit(cfg, dev, emit)
     elif cfg.algorithm == "compare":
@@ -450,7 +478,8 @@ def main(argv=None):
         _run_deflation(cfg, args, dev, emit)
     else:
         _run_relobralo(cfg, dev, emit)
-    _write_summary(out_dir, records)
+    if lead:
+        _write_summary(out_dir, records)
     return 0
 
 

@@ -24,6 +24,15 @@ Around it, as in the JAX package:
   (exact K1 steps), `fresh_values` (S₂, S₃ from a plain value-only forward).
 The boundary term (a few hundred points) is differentiated by autograd.
 `runs=True` builds the run mode (n_runs > 1 in the JAX package).
+
+The psum-aware mode (JAX's `axis_name=`): under `group=` the batch's
+collocation arrays are this rank's shard. The kernels run on it; the four
+sums are summed over the ranks before the cotangents (with the global
+point count), the weight gradients after — in the relaxed step with the
+new sums, in ONE all-reduce of both. The boundary points are replicated,
+so their term needs no collective. Which corrector steps run is decided on
+the host from the step count, the same on every rank, so every rank makes
+the same collectives.
 """
 from __future__ import annotations
 
@@ -44,6 +53,7 @@ from gpe_tpu_torch.kernels.fused_residual import (collocation_sums,
                                                   collocation_sums_runs_plain,
                                                   sums_to_loss)
 from gpe_tpu_torch.models.mlp import mlp_apply
+from gpe_tpu_torch.ops.collectives import global_count, psum, psum_tree
 
 
 def _leaves(params):
@@ -230,7 +240,12 @@ def make_value_and_grad(layers, activation: str = "tanh", p: float = 3.0,
     A single-run vag carries its run-mode twin, built with the same relaxed
     settings, as `vag.run_axis`: an ensemble trainer (`loop.fit_ensemble`)
     steps R runs of it in one launch where the JAX package vmaps the
-    single-run vag."""
+    single-run vag.
+
+    Every form takes `group=` (a process group; JAX's `axis_name`) and is
+    marked `psum_aware`: the psum-aware mode of the module docstring, which
+    `fit(mesh=)` runs through `parallel.mesh.make_parallel_vag`; the
+    relaxed state then holds the global sums, the same on every rank."""
     if layers[-1] != 1:
         raise ValueError("scalar-output nets only")
     kw = dict(activation=activation, p=p, kinetic=kinetic,
@@ -256,8 +271,8 @@ def make_value_and_grad(layers, activation: str = "tanh", p: float = 3.0,
         leaves = [c + bc_weight * b for c, b in zip(_leaves(cgrads), bgrads)]
         return _pairs(leaves)
 
-    def _finish(params, batch, scale, sums, cgrads):
-        mu, pde, norm, _ = sums_to_loss(sums, batch["x"].shape[0], norm_weight)
+    def _finish(params, batch, scale, sums, cgrads, n):
+        mu, pde, norm, _ = sums_to_loss(sums, n, norm_weight)
         bmean, bgrads = boundary_vg(params, batch["bx"], scale,
                                     batch.get("base_bval"))
         total = pde + bc_weight * bmean + norm_weight * norm
@@ -273,13 +288,15 @@ def make_value_and_grad(layers, activation: str = "tanh", p: float = 3.0,
         return grads_fn(params, batch["x"], batch["V"], batch["w"], gamma, scale,
                         cots, batch.get("base_val"), batch.get("base_lap"), **kw)
 
-    def vag(params, batch, gamma, scale):
-        sums = _sums(params, batch, gamma, scale)
-        _, _, _, cots = sums_to_loss(sums, batch["x"].shape[0], norm_weight)
+    def vag(params, batch, gamma, scale, group=None):
+        n = global_count(batch["x"].shape[0], group)
+        sums = psum(_sums(params, batch, gamma, scale), group)
+        _, _, _, cots = sums_to_loss(sums, n, norm_weight)
         cgrads, _ = _grads(params, batch, gamma, scale, cots)
-        return _finish(params, batch, scale, sums, cgrads)
+        return _finish(params, batch, scale, sums, psum_tree(cgrads, group), n)
 
     def with_twin(fn):
+        fn.psum_aware = True
         if not runs:
             fn.run_axis = make_value_and_grad(
                 layers, activation, p, kinetic, nonlinearity, bc_weight,
@@ -296,26 +313,27 @@ def make_value_and_grad(layers, activation: str = "tanh", p: float = 3.0,
         return torch.stack([torch.sum(u * u, dim=-1), torch.sum(u * u * w, dim=-1)],
                            dim=-1)
 
-    def init_state(params, batch, gamma, scale):
+    def init_state(params, batch, gamma, scale, group=None):
         """Exact sums of the initial params (one K1 launch per fit); both
         histories start there, so step 0's cotangents are exact."""
-        s = _sums(params, batch, gamma, scale)
+        s = psum(_sums(params, batch, gamma, scale), group)
         return (s, s, 0)
 
-    def vag_relaxed(params, batch, gamma, scale, state):
+    def vag_relaxed(params, batch, gamma, scale, state, group=None):
+        n = global_count(batch["x"].shape[0], group)
         sums_prev, sums_prev2, step = state
         sums_cot = 2.0 * sums_prev - sums_prev2 if extrapolate else sums_prev
         do = 0 < step < exact_until or (
             refresh_every and step > 0 and step % refresh_every == 0)
         if do:
-            sums_cot = _sums(params, batch, gamma, scale)
+            sums_cot = psum(_sums(params, batch, gamma, scale), group)
         if fresh_values:
-            sums_cot = torch.cat([sums_cot[..., :2], _value_sums(
-                params, batch["x"], batch["w"], scale, batch.get("base_val"))],
-                dim=-1)
-        _, _, _, cots = sums_to_loss(sums_cot, batch["x"].shape[0], norm_weight)
-        cgrads, sums_new = _grads(params, batch, gamma, scale, cots)
-        value, grads = _finish(params, batch, scale, sums_new, cgrads)
+            sums_cot = torch.cat([sums_cot[..., :2], psum(_value_sums(
+                params, batch["x"], batch["w"], scale, batch.get("base_val")),
+                group)], dim=-1)
+        _, _, _, cots = sums_to_loss(sums_cot, n, norm_weight)
+        cgrads, sums_new = psum_tree(_grads(params, batch, gamma, scale, cots), group)
+        value, grads = _finish(params, batch, scale, sums_new, cgrads, n)
         return value, grads, (sums_new, sums_prev, step + 1)
 
     vag_relaxed.stateful = True

@@ -1,8 +1,10 @@
 """GPE loss terms, port of `gpe_tpu/losses/gpe.py`: PDE residual, boundary,
 normalisation (Riemann or l2), symmetry, Riesz energy, the width penalty and
 the anti-trivial regularizers, from one evaluation of the complete
-solution (single device: the JAX package's `axis_name` psums wait for the
-mesh port)."""
+solution. With an optional process group (JAX's `axis_name`) the
+collocation arrays are this rank's shard and every quadrature sum runs
+over all ranks; the boundary probes are replicated, so their mean stays
+local."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -11,6 +13,7 @@ from typing import NamedTuple
 import torch
 
 from gpe_tpu_torch.ops.rayleigh import hamiltonian_apply, riesz_energy
+from gpe_tpu_torch.ops.collectives import global_count, psum
 
 
 @dataclass(frozen=True)
@@ -34,22 +37,24 @@ class TermsOutput(NamedTuple):
     u: torch.Tensor       # complete solution on the collocation points
 
 
-def gpe_terms(u, grad, lap, bv, V, w, gamma, cfg: GPETerms, u_reflect=None,
-              x2=None) -> TermsOutput:
+def gpe_terms(u, grad, lap, bv, V, w, gamma, cfg: GPETerms, group=None,
+              u_reflect=None, x2=None) -> TermsOutput:
     """Every GPE loss term from precomputed complete-solution arrays:
     u, grad, lap (N,), (N, d), (N,); bv (B,) on the boundary probes; V, w
     (N,); u_reflect ψ at the reflected points when cfg.symmetry is set (the
     caller owns the reflection, this applies the sign); x2 = |x|² for the
-    width penalty."""
+    width penalty; group the process group of sharded collocation points
+    (None: one process)."""
     hu = hamiltonian_apply(u, lap, V, gamma, cfg.p, cfg.kinetic,
                            cfg.nonlinearity)
 
     def _red(v):
         # at least f32 accumulation: the bf16 path keeps activations and
         # GEMMs in bf16 but every quadrature sum in f32
-        return torch.sum(v, dtype=torch.promote_types(v.dtype, torch.float32))
+        return psum(torch.sum(v, dtype=torch.promote_types(v.dtype, torch.float32)),
+                    group)
 
-    n_pts = u.shape[0]
+    n_pts = global_count(u.shape[0], group)
     den = _red(u * u)
     mu = _red(u * hu) / (den + 1e-12)
     r = hu - mu * u
@@ -66,7 +71,7 @@ def gpe_terms(u, grad, lap, bv, V, w, gamma, cfg: GPETerms, u_reflect=None,
         losses["sym"] = _red(diff * diff) / n_pts
     if cfg.use_riesz:
         losses["riesz"] = riesz_energy(u, grad, V, w, gamma, cfg.p, cfg.kinetic,
-                                       normalize=True)
+                                       normalize=True, group=group)
     if cfg.width_penalty and x2 is not None:
         losses["width"] = -gamma * _red(x2 * u * u) / n_pts
     if cfg.anti_trivial:

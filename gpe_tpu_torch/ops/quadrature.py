@@ -1,9 +1,12 @@
 """Collocation grids, quadrature weights and reductions, port of
-`gpe_tpu/ops/quadrature.py` (single device: the psums wait for the mesh
-port)."""
+`gpe_tpu/ops/quadrature.py`. The reductions take an optional process
+group (JAX's `axis_name`): with collocation points sharded over its ranks
+they sum over all of them (`ops.collectives`)."""
 from __future__ import annotations
 
 import torch
+
+from gpe_tpu_torch.ops.collectives import global_count, psum
 
 
 def uniform_grid(lb, ub, n: int, d: int = 1, dtype=torch.float64,
@@ -42,12 +45,16 @@ def _acc(dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
-def integrate(fx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """∫f ≈ Σᵢ wᵢ f(xᵢ), accumulated in at least float32."""
+def integrate(fx: torch.Tensor, w: torch.Tensor, group=None) -> torch.Tensor:
+    """∫f ≈ Σᵢ wᵢ f(xᵢ), accumulated in at least float32; summed over the
+    ranks of `group` when the points are sharded."""
     wf = w * fx
-    return torch.sum(wf, dtype=_acc(wf.dtype))
+    return psum(torch.sum(wf, dtype=_acc(wf.dtype)), group)
 
 
-def wmean(fx: torch.Tensor) -> torch.Tensor:
-    """Mean over the collocation points, accumulated in at least float32."""
-    return torch.sum(fx, dtype=_acc(fx.dtype)) / fx.numel()
+def wmean(fx: torch.Tensor, group=None) -> torch.Tensor:
+    """Mean over the collocation points, accumulated in at least float32;
+    over every rank's points (the global sum over the global count) under
+    `group`."""
+    return psum(torch.sum(fx, dtype=_acc(fx.dtype)), group) / global_count(
+        fx.numel(), group)

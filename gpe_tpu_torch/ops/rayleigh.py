@@ -1,6 +1,7 @@
 """GPE Hamiltonian application, Rayleigh-quotient μ, residual and Riesz
-energy, port of `gpe_tpu/ops/rayleigh.py` (single device: the JAX
-package's `axis_name` psums wait for the mesh port)."""
+energy, port of `gpe_tpu/ops/rayleigh.py`. The reductions take an optional
+process group (JAX's `axis_name`) for collocation points sharded over its
+ranks."""
 from __future__ import annotations
 
 import torch
@@ -24,10 +25,10 @@ def hamiltonian_apply(u, lap, V, gamma, p: float = 3.0, kinetic: float = 1.0,
 
 
 def rayleigh_mu(u, lap, V, gamma, p: float = 3.0, kinetic: float = 1.0,
-                nonlinearity: str = "abs_power", eps: float = 1e-12):
+                nonlinearity: str = "abs_power", group=None, eps: float = 1e-12):
     """μ = ⟨u, Hu⟩/⟨u, u⟩ by point means (the weights cancel in the ratio)."""
     hu = hamiltonian_apply(u, lap, V, gamma, p, kinetic, nonlinearity)
-    return wmean(u * hu) / (wmean(u * u) + eps)
+    return wmean(u * hu, group) / (wmean(u * u, group) + eps)
 
 
 def gpe_residual(u, lap, V, mu, gamma, p: float = 3.0, kinetic: float = 1.0,
@@ -37,12 +38,12 @@ def gpe_residual(u, lap, V, mu, gamma, p: float = 3.0, kinetic: float = 1.0,
 
 
 def riesz_energy(u, grad, V, w, gamma, p: float = 3.0, kinetic: float = 1.0,
-                 normalize: bool = True, eps: float = 1e-12):
+                 normalize: bool = True, group=None, eps: float = 1e-12):
     """E[u] = ∫ c|∇u|² + V·u² + (2γ/(p+1))·|u|^(p+1) dx [/ ∫u² if normalize]."""
     grad2 = torch.sum(grad * grad, dim=-1)
     dens = (kinetic * grad2 + V * u * u
             + (2.0 * gamma / (p + 1.0)) * torch.abs(u) ** (p + 1.0))
-    e = integrate(dens, w)
+    e = integrate(dens, w, group)
     if normalize:
-        e = e / (integrate(u * u, w) + eps)
+        e = e / (integrate(u * u, w, group) + eps)
     return e

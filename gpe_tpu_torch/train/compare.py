@@ -24,7 +24,7 @@ from gpe_tpu_torch.device import pin_full_f32, resolve_device
 from gpe_tpu_torch.models import mlp
 from gpe_tpu_torch.models.ansatz import box_sine_factor
 from gpe_tpu_torch.models.mlp import stack_runs
-from gpe_tpu_torch.train.loop import _MESH, fit, fit_ensemble
+from gpe_tpu_torch.train.loop import fit, fit_ensemble
 from gpe_tpu_torch.train.optimizers import make_optimizer
 from gpe_tpu_torch.train.plpinn import _generator, ramp_optimizer
 from gpe_tpu_torch.train.pretrain import pretrain_to_base
@@ -42,10 +42,11 @@ class MethodRun(NamedTuple):
     params: object
 
 
-def _setup(spec: GPESpec, use_perturbation: bool, mode: int, device):
-    """(spec, device, batch, loss_fn, fused vag or None) of one method."""
+def _setup(spec: GPESpec, use_perturbation: bool, mode: int, device, mesh=None):
+    """(spec, device, batch, loss_fn, fused vag or None) of one method, on
+    the mesh's device under a mesh."""
     pin_full_f32()
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
     spec = replace(spec, use_perturbation=use_perturbation)
     return (spec, dev, make_batch(spec, mode, device=dev), make_loss_fn(spec),
             make_fused_value_and_grad(spec, device=dev))
@@ -91,10 +92,13 @@ def train_single_model(spec: GPESpec, gamma: float, mode: int = 0,
     """One (method, γ, mode) training run with the reference budget, on
     `device` (None → the CUDA card). Both methods pretrain on the mode's
     analytic base: PL-PINN the raw net (then q-scaled), vanilla the complete
-    solution (net × sine factor for a hard-BC spec)."""
+    solution (net × sine factor for a hard-BC spec). mesh (a "data" mesh):
+    the fit with the collocation points sharded over its ranks, without the
+    fused gradient (`fit(mesh=)`, as in the JAX package)."""
+    spec, dev, batch, loss_fn, vag = _setup(spec, use_perturbation, mode, device,
+                                            mesh)
     if mesh is not None:
-        raise NotImplementedError(_MESH)
-    spec, dev, batch, loss_fn, vag = _setup(spec, use_perturbation, mode, device)
+        vag = None
     params = _init(spec, seed, dev)
     if use_perturbation:
         params, scale = _pretrain_perturbation(spec, params, batch, mode,
@@ -104,7 +108,7 @@ def train_single_model(spec: GPESpec, gamma: float, mode: int = 0,
                                          pretrain_epochs), 1.0
     res = fit(loss_fn, ramp_optimizer(lr, lr_mode), params, batch, gamma, scale,
               epochs=epochs, tol=tol, patience=patience, check_every=check_every,
-              value_and_grad_fn=vag)
+              value_and_grad_fn=vag, mesh=mesh)
     return MethodRun(res.mu_best, res.best_loss, res.epochs_run, res.loss_history,
                      res.mu_history, res.params)
 
@@ -192,12 +196,12 @@ def train_multiple_runs(spec: GPESpec, gamma: float, mode: int = 0,
     where the packed path takes the spec and seed count
     (`packed_runs_available`), else `fit_ensemble` with Adam on the cosine
     warm restarts, clip 1.0, per run. A vanilla run starts from its random
-    init."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
+    init. mesh (an "ens" mesh): the seeds shard over its ranks through
+    `fit_ensemble(mesh=)`, never the packed path (as in the JAX package)."""
     from gpe_tpu_torch.train.packed import fit_ensemble_packed, packed_runs_available
 
-    spec, dev, batch, loss_fn, vag = _setup(spec, use_perturbation, mode, device)
+    spec, dev, batch, loss_fn, vag = _setup(spec, use_perturbation, mode, device,
+                                            mesh)
     seeds = [base_seed + i for i in range(n_runs)]
     params_list, scales = [], []
     for s in seeds:
@@ -210,7 +214,7 @@ def train_multiple_runs(spec: GPESpec, gamma: float, mode: int = 0,
         params_list.append(p)
         scales.append(q)
     params_batch = stack_runs(params_list)
-    if packed_runs_available(spec, n_runs, device=dev):
+    if mesh is None and packed_runs_available(spec, n_runs, device=dev):
         ens = fit_ensemble_packed(spec, params_batch, batch, gamma, scales,
                                   epochs=epochs, tol=tol, patience=patience,
                                   check_every=check_every, lr=lr, lr_mode="cosine")
@@ -219,7 +223,8 @@ def train_multiple_runs(spec: GPESpec, gamma: float, mode: int = 0,
                              clip_norm=1.0)
         ens = fit_ensemble(loss_fn, opt, params_batch, batch, gamma, scales,
                            epochs=epochs, tol=tol, patience=patience,
-                           check_every=check_every, value_and_grad_fn=vag)
+                           check_every=check_every, value_and_grad_fn=vag,
+                           mesh=mesh)
 
     ok = np.ones(n_runs, dtype=bool)
     if success_threshold is not None:

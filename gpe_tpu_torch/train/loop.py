@@ -19,6 +19,10 @@ over the runs: per-run γ, scale and batch entries, per-run clip and LR
 value-and-grad steps all runs in one launch of its run-mode kernels
 (`vag.run_axis`); without one, `torch.func.vmap` batches autograd of the
 loss over the runs.
+
+`mesh=` (parallel/mesh.py) is the JAX package's data parallelism over
+`torch.distributed`: `fit` shards the collocation points over the ranks,
+`fit_ensemble` the runs. Every rank returns the same result.
 """
 from __future__ import annotations
 
@@ -90,7 +94,8 @@ def _as_device_f32(v, device, scalar: bool = True) -> torch.Tensor:
 
 def fit(loss_fn: Callable, optimizer, params, batch, gamma, scale,
         epochs: int = 5001, tol: float = 1e-5, patience: int = 2000,
-        check_every: int = 512, value_and_grad_fn: Callable = None) -> FitResult:
+        check_every: int = 512, value_and_grad_fn: Callable = None,
+        mesh=None) -> FitResult:
     """Train until convergence or `epochs`, reference early-stop semantics.
 
     loss_fn(params, batch, gamma, scale) -> (total, aux with 'mu'); gamma
@@ -99,12 +104,38 @@ def fit(loss_fn: Callable, optimizer, params, batch, gamma, scale,
     `value_and_grad_fn` (the contract of `value_and_grad(loss_fn)`) swaps in
     a custom gradient, e.g. the fused CUDA kernels; a stateful one
     (`.stateful`, `.init_state`) is initialised here and threaded through
-    the steps. `optimizer` has init(params) / update(grads, state, value)."""
+    the steps. `optimizer` has init(params) / update(grads, state, value).
+
+    `mesh` (a "data" mesh of parallel/mesh.py) shards the collocation
+    points over its ranks: `batch` is the global batch, each rank keeps its
+    block of rows (`shard_batch`), and the loss — the best-params read-back too —
+    runs with its sums over every rank (loss_fn must take `group=`, as
+    `make_loss_fn`'s does); params are replicated and every rank returns
+    the same result. A custom gradient must be psum-aware (`.psum_aware`:
+    the fused vags of `make_fused_value_and_grad`, built with
+    n_shards=mesh.size); it then runs its kernels on the local shard with
+    its own collectives. Without one, autograd of the sharded loss with the
+    gradients averaged over the ranks
+    (`parallel.mesh.make_parallel_value_and_grad`)."""
     pin_full_f32()
     dev = batch["x"].device
     gamma = _as_device_f32(gamma, dev, scalar=value_and_grad_fn is not None)
     scale = _as_device_f32(scale, dev)
     check_every = min(check_every, epochs)
+    if mesh is not None:
+        from gpe_tpu_torch.parallel.mesh import (make_parallel_value_and_grad,
+                                                 parallel_loss_cached,
+                                                 parallel_vag_cached, shard_batch)
+        if value_and_grad_fn is None:
+            value_and_grad_fn = make_parallel_value_and_grad(loss_fn, mesh, batch)
+        elif getattr(value_and_grad_fn, "psum_aware", False):
+            value_and_grad_fn = parallel_vag_cached(value_and_grad_fn, mesh, batch)
+        else:
+            raise ValueError("mesh requires a psum-aware value_and_grad_fn (the "
+                             "fused vags are; build it with make_fused_value_and_"
+                             "grad(spec, n_shards=mesh.size))")
+        loss_fn = parallel_loss_cached(loss_fn, mesh, batch)
+        batch = shard_batch(batch, mesh)
     vag = value_and_grad_fn or value_and_grad(loss_fn)
     stateful = bool(getattr(vag, "stateful", False))
     vstate = vag.init_state(params, batch, gamma, scale) if stateful else None
@@ -164,10 +195,6 @@ def fit(loss_fn: Callable, optimizer, params, batch, gamma, scale,
     )
 
 
-_MESH = ("mesh is not ported yet (ROADMAP.md Queue 1 item 5); see "
-         "gpe_tpu.train.loop.fit_ensemble")
-
-
 def _run_vector(v, R: int, device) -> torch.Tensor:
     """A number or an (R,) sequence as an (R,) f32 tensor on `device`."""
     t = torch.as_tensor(v, dtype=torch.float32).to(device)
@@ -218,9 +245,13 @@ def fit_ensemble(loss_fn: Callable, optimizer, params_batch, batch, gamma, scale
     make_fused_value_and_grad); its run-mode twin `.run_axis` steps all runs
     in one launch of the run-mode kernels, a stateful one initialised here
     (one run-mode K1 launch). None: autograd of `loss_fn` vmapped over the
-    runs (torch.func). `mesh` raises NotImplementedError."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
+    runs (torch.func).
+
+    `mesh` (an "ens" mesh of parallel/mesh.py) shards the run axis: each
+    rank steps its R/P runs (`shard_ensemble`) on the whole batch with no
+    collective a step; the ranks agree once a chunk on whether every run
+    is done, and the result is gathered on every rank at the end
+    (`gather_ensemble`). R must divide over the mesh."""
     pin_full_f32()
     leaves = pytree.tree_leaves(params_batch)
     dev, R = leaves[0].device, leaves[0].shape[0]
@@ -233,6 +264,11 @@ def fit_ensemble(loss_fn: Callable, optimizer, params_batch, batch, gamma, scale
             raise ValueError(f"per_run_batch[{k!r}] must lead with R={R}, "
                              f"got {tuple(t.shape)}")
         prb[k] = t
+    if mesh is not None:
+        from gpe_tpu_torch.parallel.mesh import shard_ensemble
+        params_batch, gamma, scale, prb = shard_ensemble(
+            (params_batch, gamma, scale, prb), mesh)
+        R = R // mesh.size
     check_every = min(check_every, epochs)
     opt = optimizer.per_run_form()
     plain_vag, plain_loss = _plain_ensemble(loss_fn)
@@ -290,7 +326,7 @@ def fit_ensemble(loss_fn: Callable, optimizer, params_batch, batch, gamma, scale
         losses.append(host[:n].T)
         mus.append(host[n:2 * n].T)
         steps_done += n
-        if host[-1].all():
+        if _all_done(host[-1].all(), mesh):
             break
 
     loss_history = np.concatenate(losses, axis=1)
@@ -299,7 +335,7 @@ def fit_ensemble(loss_fn: Callable, optimizer, params_batch, batch, gamma, scale
     epochs_run = np.where(done.cpu().numpy(), np.minimum(stop, epochs), steps_done)
     with torch.no_grad():
         _, aux_best = plain_loss(best_params, batch, prb, gamma, scale)
-    return EnsembleFitResult(
+    return _gathered(EnsembleFitResult(
         params=best_params,
         final_params=params,
         best_loss=best_loss.cpu().numpy(),
@@ -307,4 +343,21 @@ def fit_ensemble(loss_fn: Callable, optimizer, params_batch, batch, gamma, scale
         epochs_run=epochs_run,
         loss_history=loss_history,
         mu_history=mu_history,
-        mu_best=aux_best["mu"].cpu().numpy())
+        mu_best=aux_best["mu"].cpu().numpy()), mesh)
+
+
+def _all_done(local: bool, mesh) -> bool:
+    """Whether every run is done: this rank's runs, or every rank's under a
+    mesh (one all-reduce a chunk, so every rank leaves the loop together)."""
+    if mesh is None:
+        return bool(local)
+    from gpe_tpu_torch.parallel.mesh import all_ranks
+    return all_ranks(bool(local), mesh)
+
+
+def _gathered(res: EnsembleFitResult, mesh) -> EnsembleFitResult:
+    """An ensemble result with every rank's runs (the same on every rank)."""
+    if mesh is None:
+        return res
+    from gpe_tpu_torch.parallel.mesh import gather_ensemble
+    return EnsembleFitResult(*gather_ensemble(tuple(res), mesh))

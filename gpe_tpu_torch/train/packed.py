@@ -31,7 +31,8 @@ import torch
 from gpe_tpu_torch.device import pin_full_f32, resolve_device
 from gpe_tpu_torch.kernels.fused_residual import make_loss_eval
 from gpe_tpu_torch.kernels.packing import packable_runs
-from gpe_tpu_torch.train.loop import EnsembleFitResult, _run_vector, _run_where
+from gpe_tpu_torch.train.loop import (EnsembleFitResult, _all_done, _gathered,
+                                      _run_vector, _run_where)
 from gpe_tpu_torch.train.optimizers import ClipAdam
 from gpe_tpu_torch.train.problem import (make_packed_value_and_grad,
                                          packed_eligible, packed_value_and_grad)
@@ -118,10 +119,12 @@ def fit_ensemble_packed(spec, params_batch, batch, gamma, scale,
     gamma, scale: numbers or (R,) per run. per_run_base: optional
     {"base_val"/"base_lap": (R, n), "base_bval": (R, B)} giving each run its
     own perturbation base (the packed multi-mode continuation); keys present
-    here override the shared `batch` entries."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh is not ported yet; see gpe_tpu.train.packed.fit_ensemble_packed")
+    here override the shared `batch` entries.
+
+    mesh (an "ens" mesh of parallel/mesh.py) shards the R // M packed units
+    — each rank's R/P runs, consecutive as the units are — with no
+    collective a step, as `fit_ensemble(mesh=)` shards its runs; the unit
+    count must divide over the mesh, as in the JAX package."""
     pin_full_f32()
     dev = batch["x"].device
     R = params_batch[0][0].shape[0]
@@ -131,13 +134,22 @@ def fit_ensemble_packed(spec, params_batch, batch, gamma, scale,
     opt = packed_ramp_optimizer(lr, lr_mode, clip_norm)
     gamma = _run_vector(gamma, R, dev)
     scale = _run_vector(scale, R, dev)
-    b = dict(batch)
+    runb = {}
     for k, arr in (per_run_base or {}).items():
         a = torch.as_tensor(arr, dtype=torch.float32).to(dev).contiguous()
         if a.ndim != 2 or a.shape[0] != R:
             raise ValueError(f"per_run_base[{k!r}] must be (R={R}, …), "
                              f"got {tuple(a.shape)}")
-        b[k] = a
+        runb[k] = a
+    if mesh is not None:
+        from gpe_tpu_torch.parallel.mesh import shard_ensemble
+        if (R // M) % mesh.size:
+            raise ValueError(f"packed unit count {R // M} must divide over the "
+                             f"{mesh.size}-rank mesh")
+        params_batch, gamma, scale, runb = shard_ensemble(
+            (params_batch, gamma, scale, runb), mesh)
+        R = R // mesh.size
+    b = {**batch, **runb}
     check_every = min(check_every, epochs)
 
     c = PackedCarry(
@@ -187,7 +199,7 @@ def fit_ensemble_packed(spec, params_batch, batch, gamma, scale,
                           c.done[None].float()]).cpu().numpy()
         losses.append(host[:n].T)
         mus.append(host[n:2 * n].T)
-        if host[-1].all():
+        if _all_done(host[-1].all(), mesh):
             break
 
     loss_history = np.concatenate(losses, axis=1)
@@ -200,14 +212,14 @@ def fit_ensemble_packed(spec, params_batch, batch, gamma, scale,
                         norm_weight=spec.norm_weight, runs=True)
     with torch.no_grad():
         _, aux_best = ev(c.best_params, b, gamma, scale)
-    return EnsembleFitResult(
+    return _gathered(EnsembleFitResult(
         params=c.best_params, final_params=c.params,
         best_loss=c.best_loss.cpu().numpy(),
         mu=mu_history[:, -1],
         epochs_run=epochs_run,
         loss_history=loss_history,
         mu_history=mu_history,
-        mu_best=aux_best["mu"].cpu().numpy())
+        mu_best=aux_best["mu"].cpu().numpy()), mesh)
 
 
 _BASE_KEYS = ("base_val", "base_grad", "base_lap", "base_bval")

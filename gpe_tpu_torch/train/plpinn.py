@@ -146,16 +146,22 @@ def train_plpinn(spec: GPESpec, gamma_values, modes=(0,), epochs: int = 5001,
     polish_x64=True appends a float64 LM endgame (`polish_x64_steps` steps,
     gauss_newton.lm_polish_x64) to each checkpoint polish and reports μ from
     a float64 evaluation, on `device` through the plain autograd path (the
-    fused kernels are f32 only)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh is not ported yet; see gpe_tpu.train.plpinn.train_plpinn")
-    dev = resolve_device(device)
+    fused kernels are f32 only).
+
+    mesh (a "data" mesh, parallel/mesh.py; its device replaces `device`) runs
+    every fit with the collocation points sharded over its ranks, on the
+    sharded plain loss (no fused gradient under a mesh, as in the JAX
+    package); pretraining and the LM polishes run on the whole batch on
+    every rank. Every rank returns the same result; only rank 0 writes the
+    checkpoint and prints."""
+    dev = resolve_device(device) if mesh is None else mesh.device
+    lead = mesh is None or mesh.rank == 0
+    verbose = verbose and lead
     pin_full_f32()
     gs = [float(g) for g in gamma_values]
     gamma_values = sorted(gs, reverse=all(g <= 0 for g in gs) and any(g < 0 for g in gs))
     loss_fn = make_loss_fn(spec)
-    fused_vag = make_fused_value_and_grad(spec, device=dev)
+    fused_vag = None if mesh is not None else make_fused_value_and_grad(spec, device=dev)
     ckpt = None
     if checkpoint_path:
         from gpe_tpu_torch.io.checkpoint import SweepCheckpointer
@@ -221,7 +227,8 @@ def train_plpinn(spec: GPESpec, gamma_values, modes=(0,), epochs: int = 5001,
             t0 = time.perf_counter()
             res = fit(loss_fn, optimizer, params, batch, gamma, scale,
                       epochs=epochs, tol=tol, patience=patience,
-                      check_every=check_every, value_and_grad_fn=fused_vag)
+                      check_every=check_every, value_and_grad_fn=fused_vag,
+                      mesh=mesh)
             fit_s[gamma] = time.perf_counter() - t0
             params = res.params
             mus.append((gamma, res.mu_best))
@@ -260,7 +267,7 @@ def train_plpinn(spec: GPESpec, gamma_values, modes=(0,), epochs: int = 5001,
             if rebase:
                 batch, params = _rebase(spec, batch, params, scale,
                                         _generator(mode_seed * 1_000_003 + gi))
-            if ckpt is not None:
+            if ckpt is not None and lead:
                 done_gammas.add(gamma)
                 ckpt.put(f"{mode}:{gamma!r}", {
                     "mu": res.mu_best, "params": res.params,

@@ -197,13 +197,15 @@ def spec_ansatz(spec: GPESpec):
 
 
 def make_terms_fn(spec: GPESpec) -> Callable:
-    """terms_fn(net_params, batch, gamma, scale) -> TermsOutput from ONE
-    forward-Laplacian evaluation of the complete solution (perturbation and
-    hard-BC composition here, the terms in losses/gpe.py)."""
+    """terms_fn(net_params, batch, gamma, scale, group=None) -> TermsOutput
+    from ONE forward-Laplacian evaluation of the complete solution
+    (perturbation and hard-BC composition here, the terms in losses/gpe.py);
+    under a process group the batch's collocation arrays are this rank's
+    shard and the sums run over every rank."""
     cfg = spec.terms_cfg()
     a = spec_ansatz(spec)
 
-    def terms_fn(net_params, batch, gamma, scale):
+    def terms_fn(net_params, batch, gamma, scale, group=None):
         n = a.vgl(net_params, batch["x"], 1.0)
         u = scale * n.value
         grad = scale * n.grad
@@ -221,7 +223,7 @@ def make_terms_fn(spec: GPESpec) -> Callable:
                 u_reflect = batch["base_val_reflect"] + u_reflect
         x2 = torch.sum(batch["x"] * batch["x"], dim=-1) if cfg.width_penalty else None
         return gpe_terms(u, grad, lap, bv, batch["V"], batch["w"], gamma, cfg,
-                         u_reflect=u_reflect, x2=x2)
+                         group=group, u_reflect=u_reflect, x2=x2)
 
     return terms_fn
 
@@ -248,10 +250,12 @@ def init_params(spec: GPESpec, generator: torch.Generator | None = None,
 
 
 def make_loss_fn(spec: GPESpec) -> Callable:
-    """loss_fn(params, batch, gamma, scale) -> (total, aux). weighting
-    "fixed": Σ wᵢ·Lᵢ (paper: pde + 10·bc + 20·norm); "self_adaptive":
-    params = {"net", "log_alpha"}, weights wᵢ·exp(log_alphaᵢ) that ascend
-    (losses/balancing.py:self_adaptive_total)."""
+    """loss_fn(params, batch, gamma, scale, group=None) -> (total, aux).
+    weighting "fixed": Σ wᵢ·Lᵢ (paper: pde + 10·bc + 20·norm);
+    "self_adaptive": params = {"net", "log_alpha"}, weights
+    wᵢ·exp(log_alphaᵢ) that ascend (losses/balancing.py:
+    self_adaptive_total). group: the process group of sharded collocation
+    points (`make_terms_fn`; parallel/mesh.py:make_parallel_loss)."""
     terms_fn = make_terms_fn(spec)
     weights = spec.loss_weights()
     if spec.weighting == "self_adaptive":
@@ -265,8 +269,8 @@ def make_loss_fn(spec: GPESpec) -> Callable:
     else:
         raise ValueError(f"unknown weighting {spec.weighting!r}")
 
-    def loss_fn(params, batch, gamma, scale):
-        out = terms_fn(net_of(params), batch, gamma, scale)
+    def loss_fn(params, batch, gamma, scale, group=None):
+        out = terms_fn(net_of(params), batch, gamma, scale, group)
         total = total_of(params, out.losses)
         aux = dict(out.losses)
         aux["mu"] = out.mu
@@ -326,6 +330,7 @@ def _fused_loss(spec: GPESpec) -> bool:
 
 def make_fused_value_and_grad(spec: GPESpec, device=None,
                               relaxed: bool | None = None,
+                              n_shards: int = 1,
                               refresh_every: int | None = None,
                               extrapolate: bool | None = None,
                               exact_until: int | None = None,
@@ -336,10 +341,14 @@ def make_fused_value_and_grad(spec: GPESpec, device=None,
     not carried over. GPE_TPU_TORCH_NO_FUSED=1 disables the fused path.
     The relaxed mode resolves as `_resolve_relaxed`; refresh_every and
     exact_until left None read GPE_TPU_TORCH_RELAXED_REFRESH and
-    GPE_TPU_TORCH_RELAXED_EXACT_UNTIL (default 0)."""
+    GPE_TPU_TORCH_RELAXED_EXACT_UNTIL (default 0).
+
+    n_shards: the ranks of the mesh `fit(mesh=)` shards the points over;
+    None when the collocation count does not divide over them, as in the
+    JAX package. The vag is psum-aware either way (`vag.psum_aware`)."""
     from gpe_tpu_torch.kernels import fused_grad
 
-    if _env("NO_FUSED"):
+    if _env("NO_FUSED") or (spec.n_points ** spec.dim) % n_shards:
         return None
     relaxed, fresh_values, extrapolate = _resolve_relaxed(
         relaxed, fresh_values, extrapolate)

@@ -41,6 +41,7 @@ from gpe_tpu_torch.experiments.configs import EXPERIMENTS  # noqa: E402
 from gpe_tpu_torch.kernels import fused_grad as k2  # noqa: E402
 from gpe_tpu_torch.models.ansatz import box_sine_factor  # noqa: E402
 from gpe_tpu_torch.models.mlp import mlp_apply, params_from_numpy, run_slice  # noqa: E402
+from gpe_tpu_torch.parallel.mesh import Mesh  # noqa: E402
 from gpe_tpu_torch.train import compare as tcompare  # noqa: E402
 from gpe_tpu_torch.train import loop as tloop  # noqa: E402
 from gpe_tpu_torch.train import plpinn as tpl  # noqa: E402
@@ -241,11 +242,14 @@ def test_fit_ensemble_refuses_a_vag_without_a_twin_and_a_mesh():
     with pytest.raises(ValueError, match="run_axis"):
         tloop.fit_ensemble(loss_fn, tpl.ramp_optimizer(), runs, tb, 0.0, 0.01,
                            epochs=2, value_and_grad_fn=tloop.value_and_grad(loss_fn))
+    # a mesh the runs do not divide over (the seeds shard over its ranks)
+    mesh = Mesh(None, 0, 4, ("ens",), torch.device("cpu"))
     for call in (lambda: tloop.fit_ensemble(loss_fn, tpl.ramp_optimizer(), runs, tb,
-                                            0.0, 0.01, epochs=2, mesh=object()),
-                 lambda: tcompare.train_multiple_runs(tspec, 0.0, mesh=object(),
+                                            0.0, 0.01, epochs=2, mesh=mesh),
+                 lambda: tcompare.train_multiple_runs(tspec, 0.0, n_runs=2, epochs=2,
+                                                      pretrain_epochs=1, mesh=mesh,
                                                       device="cpu")):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        with pytest.raises(ValueError, match="run count 2 does not divide"):
             call()
 
 

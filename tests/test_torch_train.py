@@ -240,7 +240,8 @@ def test_configs_match_the_jax_registry():
     field the two dataclasses share (the spec's dtype aside), every one runs
     on a branch the port's runner has, and every other JAX config is listed
     in WAITING with what it waits for — none of them any more for a basis,
-    the ansatz, the disk, a loss term, a weighting or a runner branch."""
+    the ansatz, the disk, a loss term, a weighting, a runner branch or the
+    mesh."""
     from dataclasses import fields
 
     from gpe_tpu.experiments.configs import EXPERIMENTS as JEXP
@@ -258,17 +259,17 @@ def test_configs_match_the_jax_registry():
             "vary_beta_gravity_well", "vary_beta_box_gaussian", "two_stage_beta_gamma",
             "p_ramp_harmonic", "deflation_harmonic", "deflation_2d",
             "gpe2d_relobralo"} <= set(EXPERIMENTS)
-    assert len(WAITING) == 6
+    assert len(WAITING) == 5
     for what in ("basis", "ansatz", "geometry", "gpe_terms", "self_adaptive",
                  "fit branch", "cross-potential", "compare", "beta_sweep",
-                 "two_stage", "p_ramp", "deflation", "balanced"):
+                 "two_stage", "p_ramp", "deflation", "balanced", "make_mesh"):
         assert not any(what in v for v in WAITING.values()), what
     cfg_fields = [f.name for f in fields(next(iter(EXPERIMENTS.values())))]
     assert cfg_fields == [f.name for f in fields(next(iter(JEXP.values())))]
     spec_fields = [f.name for f in fields(tprob.GPESpec) if f.name != "dtype"]
     for name, cfg in EXPERIMENTS.items():
         jcfg = JEXP[name]
-        assert jcfg.algorithm in BRANCHES and not jcfg.use_mesh
+        assert jcfg.algorithm in BRANCHES
         for f in cfg_fields:
             if f != "spec":
                 assert getattr(cfg, f) == getattr(jcfg, f), (name, f)
