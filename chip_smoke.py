@@ -75,17 +75,29 @@ port's three paths on the card:
    rank's runs (and, in its first step, of all six); (d) the
    runner on `plpinn_sharded_dp` at cut depth on a world-size-1 NCCL mesh,
    μ(0) against 1; then K2 timed at one rank's shard (25,088 points).
+9. the optimizer zoo, the curriculum and the Helmholtz family, which train
+   by autograd and launch no kernel: (a) 10 fit steps of every optimizer
+   of `make_optimizer` (and adam with reduce-on-plateau) at
+   `different_optimizers_harmonic`'s full width and point count ([1,100,
+   100,100,1], 4,000 points, η = 10, clip 1.0, the α schedule) on the card
+   against the CPU from the same params and probes (loss histories at
+   1e-4; AdaHessian, Sophia and L-BFGS in float64), each timed on the card; (b) the runner's optimizer sweep at cut
+   depth (η ∈ {0, 10}, 300 epochs, seven optimizers); (c) the three
+   Helmholtz configs through the runner (500 epochs, 20 L-BFGS and 10 LM
+   steps).
 
 A kernel row's "ms" is device time: CUDA events around replays of a CUDA
 graph of one wrapper call; "call_ms" is back-to-back calls, host work
 included. Each path's launch counters are set to 0 just before it and read
-just after. Any failure exits non-zero. Output: the card's name and power limit,
+just after. It stops every process it starts, and before it reports it
+checks that none of them is left. Any failure exits non-zero. Output: the card's name and power limit,
 one {"kernels": [...]} line, and a last line {"ok": true, "device": {...}}.
 
 Needs a CUDA device; it imports nothing of JAX or of the gpe_tpu package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -114,6 +126,24 @@ DYN_RTOL = 5e-4
 
 def log(*a):
     print(*a, flush=True)
+
+
+def check_no_children() -> None:
+    """Raise if a process this script started (nvcc, the mesh's ranks,
+    multiprocessing's resource tracker) is still there: the script stops
+    every process it starts before it reports."""
+    left = []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            if ppid == os.getpid():
+                with open(f"/proc/{pid}/cmdline") as f:
+                    left.append(f"{pid}: {f.read().replace(chr(0), ' ').strip()}")
+        except (OSError, ValueError, IndexError):
+            continue
+    if left:
+        raise AssertionError(f"processes left running: {left}")
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -2005,6 +2035,154 @@ def phase_mesh(dev):
     return row, numbers
 
 
+# phase 9: the optimizer zoo, the curriculum and the Helmholtz family. They
+# train by autograd, as the JAX package does (train_curriculum and
+# train_helmholtz call fit without a fused gradient), so no kernel may
+# launch. (a) ZOO_STEPS fit steps of every optimizer of make_optimizer (and
+# adam with reduce-on-plateau) on different_optimizers_harmonic's problem
+# at full width and point count, η = 10 under the curriculum's α schedule,
+# on the card and on the CPU from the same params, batch and probes: loss
+# histories at ZOO_RTOL; the card's f32 steps timed (ms a step).
+# (b) the runner's optimizer sweep cut in depth (ZOO_SWEEP); (c) the three
+# Helmholtz configs through the runner, cut (HELMHOLTZ_RUN).
+# AdaHessian and Sophia divide by Hutchinson's estimate of the Hessian
+# diagonal (Sophia also switches, element by element, between m/(γh) and
+# its clip where h ≈ 0), and L-BFGS's line search branches on comparisons
+# of host numbers: the card's and the CPU's f32 round-off differ, flip
+# them, and their f32 histories part by 5.7e-3, 1.9e-2 and 0.13 within 10
+# steps (NVIDIA H100 80GB HBM3, 700 W; in float64 3.5e-12, 1.9e-13 and
+# 3.1e-7). ZOO_F64 are compared in float64 only, and timed in f32.
+ZOO = [(n, {}) for n in ("adam", "adamw", "qhadam", "adahessian", "adabelief", "sophia",
+                         "rmsprop", "sgd", "muon", "prodigy", "ranger21", "shampoo",
+                         "distributed_shampoo", "lbfgs")] + [("adam", {"plateau": {"patience": 3}})]
+ZOO_F64 = ("adahessian", "sophia", "lbfgs")
+ZOO_STEPS, ZOO_RTOL, ZOO_ETA = 10, 1e-4, 10.0
+ZOO_SWEEP = ["--gammas", "0", "10", "--epochs", "300"]
+HELMHOLTZ_RUN = ["--epochs", "500", "--lbfgs-steps", "20", "--lm-steps", "10"]
+
+
+def _kernel_counters() -> dict:
+    """Every kernel's launch counter by the name of its row (the psum-aware
+    K2 counts as K2), as (read, reset) pairs."""
+    from gpe_tpu_torch.kernels import fused_grad as k2
+    from gpe_tpu_torch.kernels import fused_residual as k1
+    from gpe_tpu_torch.kernels import rowcat_eval as k4
+
+    fields = {"fused_residual": (k1.collocation_sums, "launches"),
+              "fused_residual_bf16": (k1.collocation_sums, "bf16_launches"),
+              "fused_grad": (k2.collocation_grads, "launches"),
+              "fused_grad_psum": (k2.collocation_grads, "launches"),
+              "fused_residual_runs": (k1.collocation_sums_runs, "launches"),
+              "fused_grad_runs": (k2.collocation_grads_runs, "launches"),
+              "rowcat_eval": (k4.collocation_sums, "launches"),
+              "rowcat_eval_bf16": (k4.collocation_sums, "bf16_launches")}
+    return {name: (lambda fn=fn, a=a: getattr(fn, a), lambda fn=fn, a=a: setattr(fn, a, 0))
+            for name, (fn, a) in fields.items()}
+
+
+def phase_zoo(dev):
+    """Phase 9 (a)–(c); returns the launches of every kernel over the phase
+    (all 0) and its numbers."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from gpe_tpu_torch.experiments import run
+    from gpe_tpu_torch.experiments.configs import EXPERIMENTS
+    from gpe_tpu_torch.models.mlp import init_mlp
+    from gpe_tpu_torch.train.curriculum import alpha_schedule
+    from gpe_tpu_torch.train.loop import fit
+    from gpe_tpu_torch.train.optimizers import make_optimizer
+    from gpe_tpu_torch.train.problem import make_batch, make_loss_fn
+
+    counters = _kernel_counters()
+    for _, reset in counters.values():
+        reset()
+    cfg = EXPERIMENTS["different_optimizers_harmonic"]
+    sched = alpha_schedule()
+
+    def problem(dtype):
+        """(loss_fn, the CPU's and the card's params and batch) in `dtype`,
+        built on the CPU and copied to the card."""
+        spec = dataclasses.replace(cfg.spec, dtype=dtype)
+        batch = make_batch(spec, 0, device="cpu")
+        params = init_mlp(spec.layers, generator=torch.Generator().manual_seed(0),
+                          dtype=dtype, device="cpu")
+        return (make_loss_fn(spec), (params, batch),
+                (tuple((w.to(dev), b.to(dev)) for w, b in params),
+                 {k: v.to(dev) for k, v in batch.items()}))
+
+    def steps(name, kw, loss_fn, p, b, n):
+        return fit(loss_fn, make_optimizer(name, cfg.lr, clip_norm=1.0, **kw), p, b,
+                   ZOO_ETA, 1.0, epochs=n, tol=0.0, patience=10**9, check_every=n,
+                   scale_schedule=sched)
+
+    def timed(name, kw, loss_fn, params, batch):
+        """The card's fit and its ms a step (host clock, synchronised),
+        after one warm-up step of the optimizer (its first call's set-up)."""
+        steps(name, kw, loss_fn, params, batch, 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = steps(name, kw, loss_fn, params, batch, ZOO_STEPS)
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3 / ZOO_STEPS
+
+    f32, f64 = problem(torch.float32), problem(torch.float64)
+    gaps, ms = {}, {}
+    for name, kw in ZOO:
+        label = name + ("+plateau" if kw else "")
+        card, ms[label] = timed(name, kw, f32[0], *f32[2])
+        if name in ZOO_F64:
+            card = steps(name, kw, f64[0], *f64[2], ZOO_STEPS)
+        loss_fn, host = (f64 if name in ZOO_F64 else f32)[:2]
+        hist = steps(name, kw, loss_fn, *host, ZOO_STEPS).loss_history
+        gaps[label] = float(np.max(np.abs(card.loss_history / hist - 1.0)))
+        log(f"zoo {label}: card vs CPU over {ZOO_STEPS} steps in "
+            f"{'f64' if name in ZOO_F64 else 'f32'}, worst loss gap {gaps[label]:.3e} "
+            f"(loss {hist[0]:.4e} → {hist[-1]:.4e}); {ms[label]:.3f} ms a step on the "
+            "card in f32")
+    bad = {k: v for k, v in gaps.items() if not v <= ZOO_RTOL}
+    if bad:
+        raise AssertionError(f"zoo: card against CPU over {ZOO_RTOL:g}: {bad}")
+
+    sweep, helm = {}, {}
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        rc = run.main(["different_optimizers_harmonic", "--train", "--out", out] + ZOO_SWEEP)
+        sweep_s = time.perf_counter() - t0
+        with open(os.path.join(out, "different_optimizers_harmonic", "summary.json")) as f:
+            recs = json.load(f)
+        for rec in recs:
+            sweep[rec["optimizer"]] = {"mu_table": rec["mu_table"],
+                                       "ms_per_step": rec["ms_per_step"]}
+            log(f"sweep {rec['optimizer']}: {rec['ms_per_step']:.3f} ms a step, "
+                f"μ {rec['mu_table']}")
+        mus = [m for r in sweep.values() for _, m in r["mu_table"]]
+        if (rc != 0 or set(sweep) != set(EXPERIMENTS["different_optimizers_harmonic"].optimizers)
+                or not all(math.isfinite(m) for m in mus)):
+            raise AssertionError(f"optimizer sweep: rc {rc}, records {sweep}")
+        for name in ("helmholtz_square", "helmholtz_circle", "helmholtz_inverse_k"):
+            t0 = time.perf_counter()
+            rc = run.main([name, "--train", "--out", out] + HELMHOLTZ_RUN)
+            wall = time.perf_counter() - t0
+            with open(os.path.join(out, name, "summary.json")) as f:
+                rec = json.load(f)
+            helm[name] = {"s": wall, **{k: rec[k] for k in ("k", "test_mae",
+                                                             "interior_mse", "k_error",
+                                                             "seconds")}}
+            log(f"{name}: rc {rc}, {wall:.2f} s, test MAE {rec['test_mae']:.4e}, "
+                f"k {rec['k']:.6f} (k_error {rec['k_error']:.3e}), seconds {rec['seconds']}")
+            if rc != 0 or not math.isfinite(rec["test_mae"]):
+                raise AssertionError(f"{name}: rc {rc}, record {rec}")
+    launches = {name: read() for name, (read, _) in counters.items()}
+    log(f"phase 9 launches {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"phase 9 launched kernels: {launches}")
+    return launches, {"card_vs_cpu_gap": gaps, "ms_per_step": ms, "sweep": sweep,
+                      "sweep_s": sweep_s, "helmholtz": helm}
+
+
 def main() -> int:
     try:
         import torch
@@ -2094,9 +2272,13 @@ def main() -> int:
     psum_row, mesh = phase_mesh(dev)
     phases["mesh"] = time.perf_counter() - t0
     kernels.append(psum_row)
+    t0 = time.perf_counter()
+    zoo_launches, zoo = phase_zoo(dev)
+    phases["zoo"] = time.perf_counter() - t0
     by_path = {"cross_potential": cross_launches, "gravity_well_packed": gw_launches,
                "comparison": comparison, "beta_sweep": sweep_launches,
-               "trainer_configs": trainer_launches}
+               "trainer_configs": trainer_launches,
+               "zoo_curriculum_helmholtz": zoo_launches}
     for k in kernels:
         if "launches" not in k:
             k["launches"] = launches[k["name"]]
@@ -2111,7 +2293,8 @@ def main() -> int:
                     "run_family": {k: family[k] for k in ("wall_s", "seconds",
                                                           "launches")},
                     "beta_sweep": sweep, "trainer_configs_s": trainer_s,
-                    "mesh": mesh}))
+                    "mesh": mesh, "zoo": zoo}))
+    check_no_children()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

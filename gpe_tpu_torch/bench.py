@@ -217,7 +217,7 @@ def _train_ms(vag, params, batch, iters, device, stateful=False):
             (total, _), grads, st["vs"] = vag(st["p"], batch, GAMMA, SCALE, st["vs"])
         else:
             (total, _), grads = vag(st["p"], batch, GAMMA, SCALE)
-        upd, st["opt"] = opt.update(grads, st["opt"], total)
+        upd, st["opt"] = opt.update(grads, st["opt"], st["p"], value=total)
         st["p"] = _pairs(torch._foreach_add(_leaves(st["p"]), _leaves(upd)))
         return total
 

@@ -3,9 +3,11 @@
 `EXPERIMENTS` holds every configuration of the JAX registry whose parts the
 port has (bases, potentials, ansatz, loss terms, trainer, runner branch):
 the `plpinn`, `fit`, `cross_potential`, `compare`, `two_stage`,
-`beta_sweep`, `p_ramp`, `deflation` and `relobralo` ones. `WAITING` names
-each other JAX configuration and what it waits for, and `experiments/run.py` raises
-NotImplementedError with that text.
+`beta_sweep`, `p_ramp`, `deflation`, `relobralo`, `optimizer_sweep` and
+`helmholtz` ones (the Helmholtz configs' specs come from
+`helmholtz_specs()`). `WAITING` names each other JAX configuration and
+what it waits for, and `experiments/run.py` raises NotImplementedError
+with that text.
 """
 from __future__ import annotations
 
@@ -263,14 +265,38 @@ _register(ExperimentConfig(
                  bc_weight=500.0, norm_weight=100.0, pde_weight=2.0),
     algorithm="relobralo", gamma_values=(10.0,), epochs=3000))
 
-_HELMHOLTZ = "the Helmholtz trainer (gpe_tpu.helmholtz.problem.train_helmholtz)"
+# --- Helmholtz family (reference src/helmholtz_2D*.py, learnable-k notebook) --
 
-# the JAX registry's other configurations and what each waits for
+def helmholtz_specs():
+    """The Helmholtz configs' specs (their ExperimentConfig has spec None)."""
+    from gpe_tpu_torch.helmholtz.problem import HelmholtzSpec
+    return {
+        "helmholtz_square": HelmholtzSpec(domain="square", k=2.0),
+        "helmholtz_circle": HelmholtzSpec(domain="circle", k=3.0, mode_n=1),
+        "helmholtz_inverse_k": HelmholtzSpec(domain="square", k=3.0,
+                                             learnable_k=True,
+                                             learnable_bc_scale=True),
+    }
+
+
+for _name in ("helmholtz_square", "helmholtz_circle", "helmholtz_inverse_k"):
+    _register(ExperimentConfig(name=_name, spec=None, algorithm="helmholtz",
+                               epochs=4000))
+
+_register(ExperimentConfig(
+    name="different_optimizers_harmonic",        # src/gross_pitaevskii_1D_Different_Optimizers.py
+    # main (:953-998): etas=[0,10,20,30,40], [1,100,100,100,1] net, curriculum
+    # trainer run once per optimizer of the dict-dispatch zoo
+    spec=GPESpec(lb=-10.0, ub=10.0, n_points=4000,
+                 layers=(1, 100, 100, 100, 1), activation="tanh",
+                 potential="harmonic", basis="hermite", p=3.0, kinetic=1.0,
+                 nonlinearity="power", use_perturbation=True),
+    algorithm="optimizer_sweep", gamma_values=(0.0, 10.0, 20.0, 30.0, 40.0),
+    epochs=3000,
+    optimizers=("adam", "adamw", "qhadam", "adabelief", "sophia",
+                "adahessian", "shampoo")))
+
+# the JAX registry's other configuration and what it waits for
 WAITING = {
     "deeponet_harmonic": "the DeepONet trainer (gpe_tpu.deeponet.model.train_deeponet)",
-    "helmholtz_square": _HELMHOLTZ,
-    "helmholtz_circle": _HELMHOLTZ,
-    "helmholtz_inverse_k": _HELMHOLTZ,
-    "different_optimizers_harmonic": "the curriculum trainer and the optimizer zoo "
-                                     "(gpe_tpu.train.curriculum.train_curriculum)",
 }

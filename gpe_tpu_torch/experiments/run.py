@@ -1,10 +1,11 @@
 """CLI experiment runner, port of `gpe_tpu/experiments/run.py`'s `plpinn`,
 `fit`, `cross_potential`, `compare`, `two_stage`, `beta_sweep`, `p_ramp`,
-`deflation` and `relobralo` branches:
+`deflation`, `relobralo`, `optimizer_sweep` and `helmholtz` branches:
 
     python -m gpe_tpu_torch.experiments.run <name> [--train] [--epochs N]
         [--gammas G ...] [--betas B ...] [--modes M ...] [--pretrain N]
-        [--seed S] [--lm-steps N] [--out DIR] [--cpu] [--list]
+        [--seed S] [--lm-steps N] [--lbfgs-steps N] [--out DIR] [--cpu]
+        [--list]
 
 - `plpinn`: train-or-load the bundle `<out>/<name>/bundle.pkl` (`--train`
   forces a fresh run), run `train_plpinn` with the config's `rebase` and
@@ -48,6 +49,14 @@
 - `relobralo`: `fit_relobralo` per γ of the config, warm-started from the
   last step's params; one JSON line per γ (`gamma`, `mu`, `loss`,
   `lambdas` of the last step by term).
+- `optimizer_sweep`: `train_curriculum` over the config's γ (the η ramp)
+  once per optimizer of the config; one JSON line per optimizer
+  (`optimizer`, `mu_table` as [η, μ] pairs) with `ms_per_step` (the
+  sweep's fit seconds over its steps).
+- `helmholtz`: `train_helmholtz` on the config's HelmholtzSpec (Adam for
+  the config's epochs, `--lbfgs-steps` L-BFGS steps, default 100, then
+  `--lm-steps` LM steps, default 120); one JSON line (`experiment`, `k`,
+  `test_mae`, `interior_mse`, `k_error`, `wall_s`).
 
 Every record adds `seconds` (the wall time of each part) and, on the card,
 `launches`: the f32 K1 and K2 launches of what it records
@@ -57,8 +66,8 @@ their run mode (K3: `collocation_sums_runs`, `collocation_grads_runs`).
 `<out>/<name>/summary.json` holds the records as the JAX runner writes them
 (one record, or the list).
 
-`--lm-steps` defaults to each branch's JAX value (120 for `plpinn`, 60
-for `deflation`). `--out` defaults to `runs_torch`; the port never writes
+`--lm-steps` defaults to each branch's JAX value (120 for `plpinn` and
+`helmholtz`, 60 for `deflation`). `--out` defaults to `runs_torch`; the port never writes
 under `runs/`, which holds the JAX package's artifacts. The run is on the CUDA card unless
 `--cpu` is given. A failing oracle fails the run. Plots are left out (the
 JAX runner's `viz/` suite is not ported). Configurations of the JAX
@@ -394,8 +403,38 @@ def _run_relobralo(cfg, dev, emit):
                      {"fit": time.perf_counter() - t0}, launches, dev))
 
 
+def _run_optimizer_sweep(cfg, dev, emit):
+    from gpe_tpu_torch.train.curriculum import train_curriculum
+
+    launches = LaunchCounter()
+    for name in cfg.optimizers:
+        launches.mark()
+        res = train_curriculum(cfg.spec, cfg.gamma_values, mode=cfg.modes[0],
+                               epochs=cfg.epochs, lr=cfg.lr, seed=cfg.seed,
+                               optimizer=name, verbose=True, device=dev)
+        fit_s = sum(res.seconds.values())
+        record = {"optimizer": name, "mu_table": [[e, m] for e, m in res.mu_table],
+                  "ms_per_step": 1e3 * fit_s / sum(res.epochs_by_eta.values())}
+        emit(_record(record, {str(e): t for e, t in res.seconds.items()}, launches, dev))
+
+
+def _run_helmholtz(cfg, args, dev, emit):
+    from gpe_tpu_torch.experiments.configs import helmholtz_specs
+    from gpe_tpu_torch.helmholtz.problem import train_helmholtz
+
+    launches = LaunchCounter()
+    t0 = time.time()
+    res = train_helmholtz(
+        helmholtz_specs()[cfg.name], epochs=cfg.epochs, lr=cfg.lr, seed=cfg.seed,
+        lbfgs_steps=100 if args.lbfgs_steps is None else args.lbfgs_steps,
+        lm_steps=120 if args.lm_steps is None else args.lm_steps, device=dev)
+    emit(_record({"experiment": cfg.name, "k": res.k, "test_mae": res.test_mae,
+                  "interior_mse": res.interior_mse, "k_error": res.k_error,
+                  "wall_s": round(time.time() - t0, 1)}, res.seconds, launches, dev))
+
+
 BRANCHES = ("plpinn", "fit", "cross_potential", "compare", "two_stage", "beta_sweep",
-            "p_ramp", "deflation", "relobralo")
+            "p_ramp", "deflation", "relobralo", "optimizer_sweep", "helmholtz")
 
 
 def main(argv=None):
@@ -411,8 +450,10 @@ def main(argv=None):
     ap.add_argument("--pretrain", type=int, default=None)
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--lm-steps", type=int, default=None,
-                    help="LM polish steps of an lm_polish config (default 120) "
-                         "or of each deflated state (default 60)")
+                    help="LM polish steps of an lm_polish or helmholtz config "
+                         "(default 120) or of each deflated state (default 60)")
+    ap.add_argument("--lbfgs-steps", type=int, default=None,
+                    help="helmholtz: L-BFGS steps after Adam (default 100)")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
     args = ap.parse_args(argv)
 
@@ -476,6 +517,10 @@ def main(argv=None):
         _run_p_ramp(cfg, dev, emit)
     elif cfg.algorithm == "deflation":
         _run_deflation(cfg, args, dev, emit)
+    elif cfg.algorithm == "optimizer_sweep":
+        _run_optimizer_sweep(cfg, dev, emit)
+    elif cfg.algorithm == "helmholtz":
+        _run_helmholtz(cfg, args, dev, emit)
     else:
         _run_relobralo(cfg, dev, emit)
     if lead:

@@ -19,21 +19,28 @@ from gpe_tpu_torch.physics.bases import ValGradLap
 
 def init_mlp(layers: Sequence[int], scheme: str = "xavier_uniform",
              mode: int = 0, generator: torch.Generator | None = None,
-             dtype=torch.float32, device=None):
+             dtype=torch.float32, device=None, w0: float = 4.0):
     """Initialise MLP params on `device` (None → the CUDA card) from
     `generator`, a CPU torch.Generator, so the same seed gives the same
     weights on every device.
 
     schemes: "xavier_uniform" (bias 0.01), "mode_scaled" (Xavier-normal with
-    gain 1/(1+0.2·mode), bias 0.001)."""
+    gain 1/(1+0.2·mode), bias 0.001), "siren" (for activation="sin", the
+    folded form sin(Wx + b): first-layer W ~ U(−w0/fan_in, w0/fan_in),
+    hidden W ~ U(−√(6/fan_in), √(6/fan_in)), bias 0; w0 is the first
+    layer's frequency reach in physical input units)."""
     device = resolve_device(device)
     params = []
-    for fan_in, fan_out in zip(layers[:-1], layers[1:]):
-        if scheme == "xavier_uniform":
-            lim = math.sqrt(6.0 / (fan_in + fan_out))
+    for li, (fan_in, fan_out) in enumerate(zip(layers[:-1], layers[1:])):
+        if scheme in ("xavier_uniform", "siren"):
+            if scheme == "siren":
+                lim = (w0 / fan_in) if li == 0 else math.sqrt(6.0 / fan_in)
+            else:
+                lim = math.sqrt(6.0 / (fan_in + fan_out))
             w = (torch.rand(fan_in, fan_out, generator=generator,
                             dtype=torch.float64) * 2.0 - 1.0) * lim
-            b = torch.full((fan_out,), 0.01, dtype=torch.float64)
+            b = torch.full((fan_out,), 0.0 if scheme == "siren" else 0.01,
+                           dtype=torch.float64)
         elif scheme == "mode_scaled":
             std = (1.0 / (1.0 + 0.2 * mode)) * math.sqrt(2.0 / (fan_in + fan_out))
             w = std * torch.randn(fan_in, fan_out, generator=generator,

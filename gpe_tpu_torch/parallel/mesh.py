@@ -230,12 +230,12 @@ def make_parallel_step(loss_fn: Callable, optimizer, mesh: Mesh,
     """step(params, opt_state, b, gamma, scale) -> (params, opt_state,
     total, aux): loss, gradient and optimizer update with the loss sharded
     (`make_parallel_value_and_grad`); `optimizer` has init(params) /
-    update(grads, state, value)."""
+    update(grads, state, params, value=)."""
     vag = make_parallel_value_and_grad(loss_fn, mesh, batch)
 
     def step(params, opt_state, b, gamma, scale):
         (total, aux), grads = vag(params, b, gamma, scale)
-        updates, opt_state = optimizer.update(grads, opt_state, total)
+        updates, opt_state = optimizer.update(grads, opt_state, params, value=total)
         return pytree.tree_map(torch.add, params, updates), opt_state, total, aux
 
     return step
@@ -292,15 +292,34 @@ def spawn(fn: Callable, nprocs: int, *args, backend: str = "gloo",
     """Run fn(mesh, *args) on `nprocs` ranks of a new group
     (torch.multiprocessing.spawn, a file:// store in a temporary
     directory), rank r on cuda:(r % device_count) or on `device`. `fn` must
-    be importable by module path; a rank's exception is raised here."""
+    be importable by module path; a rank's exception is raised here.
+    Returns with no process of its own left running: multiprocessing's
+    resource tracker, which the spawn starts for the ranks, is stopped once
+    they have exited (else it outlives this process by a moment)."""
     import tempfile
+    from multiprocessing import resource_tracker
 
     import torch.multiprocessing as mp
 
+    tracker = resource_tracker._resource_tracker
+    started_here = tracker._pid is None
     with tempfile.TemporaryDirectory() as d:
         init = "file://" + os.path.join(d, "store")
-        mp.spawn(_rank_main, args=(fn, nprocs, backend, init, device, args),
-                 nprocs=nprocs, join=True)
+        try:
+            mp.spawn(_rank_main, args=(fn, nprocs, backend, init, device, args),
+                     nprocs=nprocs, join=True)
+        finally:
+            if started_here:
+                _stop_resource_tracker(tracker)
+
+
+def _stop_resource_tracker(tracker) -> None:
+    """Close the tracker's pipe, which ends its loop, and reap it."""
+    with tracker._lock:
+        if tracker._pid is not None:
+            os.close(tracker._fd)
+            os.waitpid(tracker._pid, 0)
+            tracker._fd = tracker._pid = None
 
 
 def _rank_main(rank, fn, nprocs, backend, init, device, args):

@@ -74,7 +74,8 @@ def fit_relobralo(spec: GPESpec, params, batch, gamma, scale=1.0,
             total = torch.sum(lam * manual_w * lvec)
             grads = torch.autograd.grad(total, leaves)
         updates, opt_state = optimizer.update(
-            pytree.tree_unflatten(list(grads), tree), opt_state, total.detach())
+            pytree.tree_unflatten(list(grads), tree), opt_state, params,
+            value=total.detach())
         params = pytree.tree_map(torch.add, params, updates)
         totals.append(total.detach())
         mus.append(out.mu.detach())

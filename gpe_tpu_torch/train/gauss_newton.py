@@ -20,6 +20,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 from torch.func import jvp, vjp
+from torch.utils import _pytree as pytree
 
 from gpe_tpu_torch.device import pin_full_f32
 from gpe_tpu_torch.ops.rayleigh import hamiltonian_apply
@@ -53,7 +54,7 @@ def make_gpe_residual_fn(spec: GPESpec) -> Callable:
 
 
 class LMResult(NamedTuple):
-    params: tuple
+    params: tuple              # the params' tree
     loss: float
     loss_history: np.ndarray
     lam_history: np.ndarray
@@ -126,17 +127,20 @@ def make_lm_solver(residual_fn: Callable, params_template, steps: int = 100,
     with Marquardt damping λ·curv (curv = ‖J ĝ‖², ĝ the unit gradient) and
     accept/reject trust-region updates of λ. graph (None: on a CUDA
     device) replays each CG matvec from a CUDA graph; False launches it op
-    by op."""
-    shapes = [t.shape for pair in params_template for t in pair]
+    by op. The params are any tree of tensors (the MLP's (W, b) pairs,
+    Helmholtz's dict with its 0-d k), flattened to one vector θ in
+    torch.utils._pytree's leaf order, as the JAX package ravels its tree."""
+    leaves, tree = pytree.tree_flatten(params_template)
+    shapes = [t.shape for t in leaves]
     sizes = [int(np.prod(s)) for s in shapes]
 
     def unravel(theta):
-        leaves = [c.view(s) for c, s in zip(torch.split(theta, sizes), shapes)]
-        return tuple((leaves[i], leaves[i + 1]) for i in range(0, len(leaves), 2))
+        return pytree.tree_unflatten(
+            [c.view(s) for c, s in zip(torch.split(theta, sizes), shapes)], tree)
 
     def solver(params, batch, gamma, scale) -> LMResult:
         pin_full_f32()
-        theta = torch.cat([t.detach().reshape(-1) for pair in params for t in pair])
+        theta = torch.cat([t.detach().reshape(-1) for t in pytree.tree_leaves(params)])
         lam = lam0
 
         def rflat(th):
@@ -170,7 +174,7 @@ def make_lm_solver(residual_fn: Callable, params_template, steps: int = 100,
             losses.append(torch.minimum(loss, loss_new).detach())
             lams.append(lam)
         loss_hist = torch.stack(losses).cpu().numpy()
-        return LMResult(tuple((w.detach(), b.detach()) for w, b in unravel(theta)),
+        return LMResult(pytree.tree_map(torch.Tensor.detach, unravel(theta)),
                         float(loss_hist[-1]), loss_hist, np.asarray(lams))
 
     return solver

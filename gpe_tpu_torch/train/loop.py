@@ -95,7 +95,7 @@ def _as_device_f32(v, device, scalar: bool = True) -> torch.Tensor:
 def fit(loss_fn: Callable, optimizer, params, batch, gamma, scale,
         epochs: int = 5001, tol: float = 1e-5, patience: int = 2000,
         check_every: int = 512, value_and_grad_fn: Callable = None,
-        mesh=None) -> FitResult:
+        mesh=None, scale_schedule: Callable = None) -> FitResult:
     """Train until convergence or `epochs`, reference early-stop semantics.
 
     loss_fn(params, batch, gamma, scale) -> (total, aux with 'mu'); gamma
@@ -104,7 +104,15 @@ def fit(loss_fn: Callable, optimizer, params, batch, gamma, scale,
     `value_and_grad_fn` (the contract of `value_and_grad(loss_fn)`) swaps in
     a custom gradient, e.g. the fused CUDA kernels; a stateful one
     (`.stateful`, `.init_state`) is initialised here and threaded through
-    the steps. `optimizer` has init(params) / update(grads, state, value).
+    the steps. `optimizer` has the protocol of train/optimizers.py:
+    init(params) / update(grads, state, params, value=, obj_fn=,
+    generator=); each step hands it the loss, the objective closure
+    obj_fn(p) = loss_fn(p, batch, gamma, s)[0] (Hutchinson's probes, the
+    L-BFGS line search) and one CPU torch.Generator (seed 0) per fit for
+    the probes. `scale_schedule(epoch) -> scale` (a host number) replaces
+    `scale` step by step (the curriculum's α schedule; the values of a
+    chunk reach the device once a chunk), in the stateful vag's initial
+    state (epoch 0) and in the best-params read-back (epoch `epochs_run`).
 
     `mesh` (a "data" mesh of parallel/mesh.py) shards the collocation
     points over its ranks: `batch` is the global batch, each rank keeps its
@@ -138,7 +146,10 @@ def fit(loss_fn: Callable, optimizer, params, batch, gamma, scale,
         batch = shard_batch(batch, mesh)
     vag = value_and_grad_fn or value_and_grad(loss_fn)
     stateful = bool(getattr(vag, "stateful", False))
-    vstate = vag.init_state(params, batch, gamma, scale) if stateful else None
+    scale_at = (lambda epoch: scale) if scale_schedule is None \
+        else (lambda epoch: _as_device_f32(scale_schedule(epoch), dev))
+    vstate = vag.init_state(params, batch, gamma, scale_at(0)) if stateful else None
+    generator = torch.Generator().manual_seed(0)
 
     opt_state = optimizer.init(params)
     best_params = params
@@ -152,12 +163,17 @@ def fit(loss_fn: Callable, optimizer, params, batch, gamma, scale,
     while steps_done < epochs:
         n = min(check_every, epochs - steps_done)
         l_hist, mu_hist = [], []
+        scales = None if scale_schedule is None else torch.as_tensor(np.asarray(
+            [scale_schedule(steps_done + i) for i in range(n)], np.float32)).to(dev)
         for i in range(n):
+            s = scale if scales is None else scales[i]
             if stateful:
-                (loss, aux), grads, vstate = vag(params, batch, gamma, scale, vstate)
+                (loss, aux), grads, vstate = vag(params, batch, gamma, s, vstate)
             else:
-                (loss, aux), grads = vag(params, batch, gamma, scale)
-            updates, opt_state = optimizer.update(grads, opt_state, loss)
+                (loss, aux), grads = vag(params, batch, gamma, s)
+            updates, opt_state = optimizer.update(
+                grads, opt_state, params, value=loss, generator=generator,
+                obj_fn=lambda p, s=s: loss_fn(p, batch, gamma, s)[0])
             new_params = pytree.tree_map(torch.add, params, updates)
             improved = (loss < best_loss) & ~done
             best_loss = torch.where(improved, loss, best_loss)
@@ -182,7 +198,7 @@ def fit(loss_fn: Callable, optimizer, params, batch, gamma, scale,
     loss_history = loss_history[: max(epochs_run, 1)]
     mu_history = mu_history[: max(epochs_run, 1)]
     with torch.no_grad():
-        _, aux_best = loss_fn(best_params, batch, gamma, scale)
+        _, aux_best = loss_fn(best_params, batch, gamma, scale_at(epochs_run))
     return FitResult(
         params=best_params,
         final_params=params,
@@ -234,8 +250,9 @@ def fit_ensemble(loss_fn: Callable, optimizer, params_batch, batch, gamma, scale
     baseline's per-checkpoint γ). per_run_batch: {key: (R, …)} batch entries
     that differ per run and override the shared `batch`'s (each seed's own
     rebased base). `optimizer` is a single-run optimizer (plpinn.
-    ramp_optimizer, make_optimizer); each run is clipped and stepped on its
-    own (`per_run_form()`). Per-run early stop (the steps after a run's stop
+    ramp_optimizer, make_optimizer("adam")); each run is clipped and
+    stepped on its own (`per_run_form()`, called as update(grads, state,
+    loss) with the (R,) losses). Per-run early stop (the steps after a run's stop
     are computed, not applied), best-restore, `stop_epoch` and `epochs_run`;
     `mu_best` is μ of the loss at the restored params. The host reads the
     histories and done flags once per chunk and stops when every run is

@@ -560,3 +560,66 @@ def test_pretrain_graphed_adam_steps_match_the_eager_ones(cuda_device):
         out.append([t.detach().cpu().numpy() for t in leaves])
     for a, b in zip(*out):
         np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-9)
+
+
+def _zoo_case(device, seed=0):
+    """The GPE loss of a small 1D spec on `device` (the batch built on the
+    CPU, then moved), a [1,32,32,32,1] net's params from numpy and a
+    gradient of the same shapes."""
+    spec = tprob.GPESpec(n_points=512, layers=(1, 32, 32, 32, 1), use_perturbation=True)
+    batch = {k: v.to(device) for k, v in tprob.make_batch(spec, 0, device="cpu").items()}
+    rng = np.random.default_rng(seed)
+    shapes = list(zip(spec.layers[:-1], spec.layers[1:]))
+    params = params_from_numpy([(rng.normal(0, 1 / np.sqrt(i), (i, o)), rng.normal(0, 0.1, o))
+                                for i, o in shapes], device=device)
+    grads = params_from_numpy([(rng.normal(0, 1, (i, o)), rng.normal(0, 1, o))
+                               for i, o in shapes], device=device)
+    loss_fn = tprob.make_loss_fn(spec)
+    return params, grads, batch, lambda p: loss_fn(p, batch, 10.0, 1.3)[0]
+
+
+def test_hessian_vector_product_on_the_card_matches_the_cpu(cuda_device):
+    """Hutchinson's z ⊙ (H z) by double backward through the forward
+    Laplacian on the card against the CPU, the same probe: rtol 1e-4 of
+    each leaf's largest entry."""
+    from torch.utils import _pytree as pytree
+
+    from gpe_tpu_torch.device import pin_full_f32
+    from gpe_tpu_torch.train.optimizers import hutchinson_diag, rademacher_like
+
+    pin_full_f32()
+    out = []
+    for dev in (torch.device("cpu"), cuda_device):
+        params, _, _, obj = _zoo_case(dev)
+        leaves, spec = pytree.tree_flatten(params)
+        z = rademacher_like(leaves, torch.Generator().manual_seed(3))
+        flat = lambda ls: obj(pytree.tree_unflatten(ls, spec))
+        out.append([d.cpu().numpy() for d in hutchinson_diag(flat, leaves, z)])
+    for b, a in zip(*out):
+        assert np.abs(b).max() > 0
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4 * np.abs(b).max())
+
+
+@pytest.mark.parametrize("name,kw,steps", [("muon", {}, 1),
+                                           ("shampoo", {"precondition_frequency": 40}, 40)])
+def test_muon_and_shampoo_updates_on_the_card_match_the_cpu(cuda_device, name, kw, steps):
+    """The same gradients on the card and on the CPU: muon's first update;
+    shampoo's 40th, where its eigh roots are first refreshed, from
+    statistics of full rank (random gradients of 40 steps). rtol 1e-5 of
+    each leaf's largest entry (Newton–Schulz and the roots in full f32)."""
+    from gpe_tpu_torch.device import pin_full_f32
+    from gpe_tpu_torch.train.optimizers import make_optimizer
+
+    pin_full_f32()
+    out = []
+    for dev in (torch.device("cpu"), cuda_device):
+        params, _, _, obj = _zoo_case(dev)
+        opt = make_optimizer(name, 1e-3, clip_norm=1.0, **kw)
+        state = opt.init(params)
+        for step in range(steps):
+            _, grads, _, _ = _zoo_case(dev, seed=step + 1)
+            u, state = opt.update(grads, state, params, value=obj(params), obj_fn=obj,
+                                  generator=torch.Generator().manual_seed(0))
+        out.append([t.cpu().numpy() for pair in u for t in pair])
+    for b, a in zip(*out):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5 * np.abs(b).max())

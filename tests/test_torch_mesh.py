@@ -16,6 +16,7 @@ ensemble step; `train_plpinn` μ rtol 5e-4 (test_parallel.py:227-242).
 Replicated results must be bit-equal across the ranks.
 """
 import json
+import os
 
 import numpy as np
 import pytest
@@ -324,3 +325,26 @@ def test_entry_points_refuse_the_other_kind_of_mesh(one_rank):
             pspec, params_from_numpy(_np_params(PACKED["layers"], 1, 4), device="cpu"),
             tprob.make_batch(pspec, 0, device="cpu"), 1.0, np.ones(4, np.float32),
             epochs=2, mesh=one_rank)
+
+
+def _children():
+    """(pid, command line) of every living child of this process."""
+    out = set()
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            if ppid == os.getpid():
+                with open(f"/proc/{pid}/cmdline") as f:
+                    out.add((pid, f.read().replace("\0", " ").strip()))
+        except (OSError, ValueError, IndexError):
+            continue
+    return out
+
+
+def test_spawn_leaves_no_process_running():
+    """The ranks are joined and the resource tracker the spawn started for
+    them is stopped: after the call this process has the children it had."""
+    before = _children()
+    assert run_cases([], nprocs=2, backend="gloo", device="cpu") == [{}, {}]
+    assert _children() == before

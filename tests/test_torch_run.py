@@ -72,8 +72,6 @@ def test_run_main_linear_1d_sanity_on_the_cpu(tmp_path, monkeypatch, capsys):
 
 
 def test_run_main_refuses_what_the_port_lacks(tmp_path):
-    with pytest.raises(NotImplementedError, match="train_curriculum"):
-        run.main(["different_optimizers_harmonic", "--cpu", "--out", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="train_deeponet"):
         run.main(["deeponet_harmonic", "--cpu", "--out", str(tmp_path)])
     assert run.main(["--list", "gpe2d_ground_state"]) == 0

@@ -239,13 +239,14 @@ def test_configs_match_the_jax_registry():
     """Every registered config equals the JAX config of its name in every
     field the two dataclasses share (the spec's dtype aside), every one runs
     on a branch the port's runner has, and every other JAX config is listed
-    in WAITING with what it waits for — none of them any more for a basis,
-    the ansatz, the disk, a loss term, a weighting, a runner branch or the
-    mesh."""
+    in WAITING with what it waits for — only DeepONet is left. The
+    Helmholtz configs (spec None) take their specs from helmholtz_specs(),
+    each equal to the JAX package's in every field (dtype aside)."""
     from dataclasses import fields
 
     from gpe_tpu.experiments.configs import EXPERIMENTS as JEXP
-    from gpe_tpu_torch.experiments.configs import WAITING
+    from gpe_tpu.experiments.configs import _helmholtz_specs
+    from gpe_tpu_torch.experiments.configs import WAITING, helmholtz_specs
     from gpe_tpu_torch.experiments.run import BRANCHES
 
     assert set(EXPERIMENTS) | set(WAITING) == set(JEXP)
@@ -258,8 +259,9 @@ def test_configs_match_the_jax_registry():
             "multirun_harmonic_mode0", "multirun_box_mode0", "vary_beta_harmonic",
             "vary_beta_gravity_well", "vary_beta_box_gaussian", "two_stage_beta_gamma",
             "p_ramp_harmonic", "deflation_harmonic", "deflation_2d",
-            "gpe2d_relobralo"} <= set(EXPERIMENTS)
-    assert len(WAITING) == 5
+            "gpe2d_relobralo", "different_optimizers_harmonic", "helmholtz_square",
+            "helmholtz_circle", "helmholtz_inverse_k"} <= set(EXPERIMENTS)
+    assert set(WAITING) == {"deeponet_harmonic"}
     for what in ("basis", "ansatz", "geometry", "gpe_terms", "self_adaptive",
                  "fit branch", "cross-potential", "compare", "beta_sweep",
                  "two_stage", "p_ramp", "deflation", "balanced", "make_mesh"):
@@ -273,5 +275,12 @@ def test_configs_match_the_jax_registry():
         for f in cfg_fields:
             if f != "spec":
                 assert getattr(cfg, f) == getattr(jcfg, f), (name, f)
+        if cfg.spec is None:
+            assert jcfg.spec is None and cfg.algorithm == "helmholtz", name
+            tspec, jspec = helmholtz_specs()[name], _helmholtz_specs()[name]
+            for f in fields(tspec):
+                if f.name != "dtype":
+                    assert getattr(tspec, f.name) == getattr(jspec, f.name), (name, f.name)
+            continue
         for f in spec_fields:
             assert getattr(cfg.spec, f) == getattr(jcfg.spec, f), (name, f)
