@@ -3,10 +3,11 @@
 `EXPERIMENTS` holds every configuration of the JAX registry whose parts the
 port has (bases, potentials, ansatz, loss terms, trainer, runner branch):
 the `plpinn`, `fit`, `cross_potential`, `compare`, `two_stage`,
-`beta_sweep`, `p_ramp`, `deflation`, `relobralo`, `optimizer_sweep` and
-`helmholtz` ones (the Helmholtz configs' specs come from
-`helmholtz_specs()`). `WAITING` names each other JAX configuration and
-what it waits for, and `experiments/run.py` raises NotImplementedError
+`beta_sweep`, `p_ramp`, `deflation`, `relobralo`, `optimizer_sweep`,
+`helmholtz` and `deeponet` ones (the Helmholtz configs' specs come from
+`helmholtz_specs()`): every configuration of the JAX registry. `WAITING`
+would name a JAX configuration the port cannot build and what it waits
+for (it is empty), and `experiments/run.py` raises NotImplementedError
 with that text.
 """
 from __future__ import annotations
@@ -296,7 +297,13 @@ _register(ExperimentConfig(
     optimizers=("adam", "adamw", "qhadam", "adabelief", "sophia",
                 "adahessian", "shampoo")))
 
-# the JAX registry's other configuration and what it waits for
-WAITING = {
-    "deeponet_harmonic": "the DeepONet trainer (gpe_tpu.deeponet.model.train_deeponet)",
-}
+_register(ExperimentConfig(
+    name="deeponet_harmonic",                    # operator learning: the V=βx²
+    # family → ψ; held-out-β generalization vs the FDM oracle
+    # (Gross_Pitaevskii_1D_Physics_Informed_DeepONet.ipynb cells 3,9,11)
+    spec=_PAPER_1D, gamma_values=(1.0,), epochs=20000, algorithm="deeponet"))
+
+# the JAX registry's configurations the port cannot build yet, each with what
+# it waits for (none at present); experiments/run.py raises NotImplementedError
+# with that text
+WAITING: dict[str, str] = {}

@@ -1,6 +1,7 @@
 """CLI experiment runner, port of `gpe_tpu/experiments/run.py`'s `plpinn`,
 `fit`, `cross_potential`, `compare`, `two_stage`, `beta_sweep`, `p_ramp`,
-`deflation`, `relobralo`, `optimizer_sweep` and `helmholtz` branches:
+`deflation`, `relobralo`, `optimizer_sweep`, `helmholtz` and `deeponet`
+branches:
 
     python -m gpe_tpu_torch.experiments.run <name> [--train] [--epochs N]
         [--gammas G ...] [--betas B ...] [--modes M ...] [--pretrain N]
@@ -57,6 +58,13 @@
   the config's epochs, `--lbfgs-steps` L-BFGS steps, default 100, then
   `--lm-steps` LM steps, default 120); one JSON line (`experiment`, `k`,
   `test_mae`, `interior_mse`, `k_error`, `wall_s`).
+- `deeponet`: `train_deeponet` on 64 potentials of the scaled-harmonic
+  family at the config's first γ (`--pretrain` replaces its 3,000
+  pretraining steps), then `evaluate_deeponet` on the held-out β grid
+  against the float64 FDM oracle; one JSON line with the JAX record's
+  keys (`experiment`, `gamma`, `train_mu_range`, `heldout`,
+  `interp_max_mu_err`, `interp_max_psi_l2`, `extrap_max_mu_err`,
+  `wall_s`) and `plot`, which says that no plot was written.
 
 Every record adds `seconds` (the wall time of each part) and, on the card,
 `launches`: the f32 K1 and K2 launches of what it records
@@ -433,8 +441,46 @@ def _run_helmholtz(cfg, args, dev, emit):
                   "wall_s": round(time.time() - t0, 1)}, res.seconds, launches, dev))
 
 
+# the held-out β grid: strictly between training samples, with mild
+# extrapolation at both ends of the training range (0.5, 2.0)
+DEEPONET_TEST_BETAS = [0.45, 0.6, 0.77, 0.93, 1.11, 1.34, 1.58, 1.83, 2.1]
+
+
+def _run_deeponet(cfg, args, dev, emit):
+    from gpe_tpu_torch.deeponet.model import (DeepONetSpec, evaluate_deeponet,
+                                              train_deeponet)
+
+    launches = LaunchCounter()
+    t0 = time.time()
+    dspec = DeepONetSpec(p=cfg.spec.p if cfg.spec else 3.0)
+    gamma = cfg.gamma_values[0]
+    t1 = time.perf_counter()
+    res = train_deeponet(dspec, gamma=gamma, epochs=cfg.epochs, n_functions=64,
+                         seed=cfg.seed, device=dev,
+                         pretrain_epochs=3000 if args.pretrain is None else args.pretrain)
+    seconds = {"train": time.perf_counter() - t1}
+    t1 = time.perf_counter()
+    rows, _, _ = evaluate_deeponet(dspec, res.params, DEEPONET_TEST_BETAS, gamma)
+    seconds["heldout"] = time.perf_counter() - t1
+    interp = [r for r in rows if 0.5 <= r["beta"] <= 2.0]
+    extrap = [r for r in rows if not (0.5 <= r["beta"] <= 2.0)]
+    emit(_record({"experiment": cfg.name, "gamma": gamma,
+                  "train_mu_range": [float(res.mu_per_fn.min()),
+                                     float(res.mu_per_fn.max())],
+                  "heldout": rows,
+                  # unseen potentials inside the training range against mild
+                  # extrapolation beyond it
+                  "interp_max_mu_err": max(r["mu_abs_err"] for r in interp),
+                  "interp_max_psi_l2": max(r["psi_l2_err"] for r in interp),
+                  "extrap_max_mu_err": (max(r["mu_abs_err"] for r in extrap)
+                                        if extrap else None),
+                  "plot": "not written (viz/ is not ported)",
+                  "wall_s": round(time.time() - t0, 1)}, seconds, launches, dev))
+
+
 BRANCHES = ("plpinn", "fit", "cross_potential", "compare", "two_stage", "beta_sweep",
-            "p_ramp", "deflation", "relobralo", "optimizer_sweep", "helmholtz")
+            "p_ramp", "deflation", "relobralo", "optimizer_sweep", "helmholtz",
+            "deeponet")
 
 
 def main(argv=None):
@@ -521,6 +567,8 @@ def main(argv=None):
         _run_optimizer_sweep(cfg, dev, emit)
     elif cfg.algorithm == "helmholtz":
         _run_helmholtz(cfg, args, dev, emit)
+    elif cfg.algorithm == "deeponet":
+        _run_deeponet(cfg, args, dev, emit)
     else:
         _run_relobralo(cfg, dev, emit)
     if lead:

@@ -545,7 +545,7 @@ def test_pretrain_graphed_adam_steps_match_the_eager_ones(cuda_device):
     """pretrain_to_base's Adam steps replayed from a CUDA graph against the
     same steps launched op by op: 50 steps, the same params to rtol 1e-6."""
     from gpe_tpu_torch.models.mlp import mlp_apply
-    from gpe_tpu_torch.train.pretrain import _adam_steps
+    from gpe_tpu_torch.train.pretrain import AdamSteps
 
     spec = tprob.GPESpec(n_points=1000, layers=(1, 32, 32, 1))
     batch = tprob.make_batch(spec, 1, device=cuda_device)
@@ -556,7 +556,7 @@ def test_pretrain_graphed_adam_steps_match_the_eager_ones(cuda_device):
         pairs = tuple((leaves[i], leaves[i + 1]) for i in range(0, len(leaves), 2))
         mse = lambda: torch.mean((mlp_apply(pairs, batch["x"], spec.activation)
                                   - batch["base_val"]) ** 2)
-        _adam_steps(mse, leaves, 1e-3, 50, graph)
+        AdamSteps(mse, leaves, 1e-3, graph).run(50)
         out.append([t.detach().cpu().numpy() for t in leaves])
     for a, b in zip(*out):
         np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-9)
@@ -623,3 +623,121 @@ def test_muon_and_shampoo_updates_on_the_card_match_the_cpu(cuda_device, name, k
         out.append([t.cpu().numpy() for pair in u for t in pair])
     for b, a in zip(*out):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5 * np.abs(b).max())
+
+
+def test_kernels_match_plain_at_the_3d_flagship_shape(cuda_device):
+    """K1 and K2 at d = 3 on the 3D flagship's grid (36³ = 46,656 points,
+    [3,128,128,128,1], γ 5, s 0.01) against their plain versions."""
+    spec = tprob.GPESpec(dim=3, lb=-6.0, ub=6.0, n_points=36,
+                         layers=(3, 128, 128, 128, 1), potential="harmonic",
+                         potential_kwargs=(("a", 0.5),), kinetic=0.5,
+                         nonlinearity="abs_power", basis="hermite")
+    batch = tprob.make_batch(spec, 0, device=cuda_device)
+    rng = np.random.default_rng(3)
+    params = params_from_numpy(
+        [(rng.normal(0.0, 1.0 / np.sqrt(k), (k, m)), rng.normal(0.0, 0.1, m))
+         for k, m in zip(spec.layers[:-1], spec.layers[1:])], device=cuda_device)
+    args = (params, batch["x"], batch["V"], batch["w"], 5.0, 0.01)
+    base = (batch["base_val"], batch["base_lap"])
+    phys = (spec.activation, spec.p, spec.kinetic, spec.nonlinearity)
+    got = k1.collocation_sums(*args, *base, *phys)
+    want = k1.collocation_sums_plain(*args, *base, *phys)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4)
+    cots = k1.sums_to_loss(got, batch["x"].shape[0], spec.norm_weight)[3]
+    grads, sums = k2.collocation_grads(*args, cots, *base, *phys)
+    pgrads, _ = k2.collocation_grads_plain(*args, cots, *base, *phys)
+    np.testing.assert_allclose(sums.cpu().numpy(), got.cpu().numpy(), rtol=1e-4)
+    _grads_close(grads, pgrads)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_dst1_card_matches_cpu(cuda_device, dtype, tol):
+    from gpe_tpu_torch.train.spectral_flow import dst1
+
+    a = torch.as_tensor(np.random.default_rng(0).normal(size=(9, 30, 17)), dtype=dtype)
+    for axis in (0, 1, 2):
+        got = dst1(a.to(cuda_device), axis).cpu()
+        np.testing.assert_allclose(got.numpy(), dst1(a, axis).numpy(), atol=tol)
+        np.testing.assert_allclose(dst1(dst1(a.to(cuda_device), axis), axis).cpu().numpy(),
+                                   a.numpy(), atol=tol)
+
+
+@pytest.mark.parametrize("bc", ["periodic", "dirichlet"])
+def test_flow_interleave_block_card_matches_cpu(cuda_device, bc):
+    """One outer step of the spectral-flow interleave (a flow block, the
+    grid μ, 20 graphed Adam steps) on the card against the CPU: the grid μ
+    at rtol 1e-6 (one f32 block), the fit loss at 1e-4 (f32 Adam)."""
+    from gpe_tpu_torch.train.spectral_flow import make_spectral_flow_solver
+
+    spec = tprob.GPESpec(dim=2, n_points=48, layers=(2, 32, 32, 1), lb=-8.0, ub=8.0,
+                         potential="harmonic", potential_kwargs=(("a", 0.5),), kinetic=0.5,
+                         use_perturbation=False, nonlinearity="abs_power")
+    batch = tprob.make_batch(spec, 0, device="cpu")
+    rng = np.random.default_rng(1)
+    init = [(rng.normal(0.0, 1.0 / np.sqrt(k), (k, m)), rng.normal(0.0, 0.1, m))
+            for k, m in zip(spec.layers[:-1], spec.layers[1:])]
+    solver = make_spectral_flow_solver(spec, outer_steps=1, inner_steps=20,
+                                       final_inner_steps=1, final_lbfgs_steps=0,
+                                       endgame_steps=50, bc=bc)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        r = solver(params_from_numpy(init, device=dev),
+                   {k: v.to(dev) for k, v in batch.items()}, 5.0)
+        out[dev.type] = r
+    np.testing.assert_allclose(out["cuda"].mu_history[0], out["cpu"].mu_history[0], rtol=1e-6)
+    np.testing.assert_allclose(out["cuda"].fit_history[0], out["cpu"].fit_history[0],
+                               rtol=1e-4)
+
+
+def test_adam_steps_graph_refill_matches_eager(cuda_device):
+    """AdamSteps across calls, graphed, with its target buffer refilled
+    between calls (the interleave's use) against the same steps op by op."""
+    from gpe_tpu_torch.models.mlp import mlp_apply
+    from gpe_tpu_torch.train.pretrain import AdamSteps
+
+    spec = tprob.GPESpec(n_points=1000, layers=(1, 32, 32, 1))
+    batch = tprob.make_batch(spec, 1, device=cuda_device)
+    rng = np.random.default_rng(5)
+    init = params_from_numpy([(rng.normal(0, 0.5, (k, m)), rng.normal(0, 0.1, m))
+                              for k, m in zip(spec.layers[:-1], spec.layers[1:])],
+                             device=cuda_device)
+    out = []
+    for graph in (False, True):
+        leaves = [t.clone().requires_grad_(True) for pair in init for t in pair]
+        pairs = tuple((leaves[i], leaves[i + 1]) for i in range(0, len(leaves), 2))
+        target = torch.zeros_like(batch["base_val"])
+        adam = AdamSteps(lambda: torch.mean((mlp_apply(pairs, batch["x"], spec.activation)
+                                             - target) ** 2), leaves, 1e-3, graph)
+        losses = []
+        for k, n in enumerate((1, 3, 5, 4)):
+            target.copy_(batch["base_val"] * (1.0 + 0.1 * k))
+            losses.append(float(adam.run(n)))
+        out.append((losses, [t.detach().cpu().numpy() for t in leaves]))
+    np.testing.assert_allclose(out[1][0], out[0][0], rtol=1e-6)
+    for a, b in zip(out[1][1], out[0][1]):
+        np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-9)
+
+
+def test_deeponet_loss_gradient_card_matches_cpu(cuda_device):
+    """The DeepONet loss and its gradient at full width (64 potentials ×
+    512 points) in float64 on the card against the CPU (rtol 1e-10)."""
+    from torch.utils import _pytree as pytree
+
+    from gpe_tpu_torch.deeponet import model as don
+    from gpe_tpu_torch.train.loop import value_and_grad
+
+    spec = don.DeepONetSpec()
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        params = pytree.tree_map(lambda t: t.double(), don.init_deeponet(
+            spec, torch.Generator().manual_seed(0), device=dev))
+        batch = {k: v.double() for k, v in
+                 don.make_potential_family_batch(spec, 64, device=dev).items()}
+        one = torch.tensor(1.0, dtype=torch.float64, device=dev)
+        (tot, aux), grads = value_and_grad(don.make_deeponet_loss(spec))(params, batch,
+                                                                         one, one)
+        out[dev.type] = (float(tot), [g.cpu().numpy() for g in pytree.tree_leaves(grads)])
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-10)
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        s = np.abs(b).max() + 1e-30
+        np.testing.assert_allclose(a / s, b / s, rtol=0, atol=1e-10)

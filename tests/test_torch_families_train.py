@@ -332,9 +332,10 @@ E2E = {"box": dict(lb=0.0, ub=1.0, potential="box", basis="box", hard_bc=True,
 def test_train_plpinn_end_to_end_matches_jax(name, monkeypatch):
     """200 points, (1,16,16,1), rungs γ ∈ {0, 1} of 20 epochs, 20 pretrain
     steps, rebase, from the JAX package's initial params on both sides: the
-    two μ tables within 3e-3 relative of each other (measured: 1.5e-4 box,
-    1.1e-3 gravity well — the L-BFGS phases of the two pretrainings take
-    different steps), μ at γ = 0 within 2e-2 of the exact eigenvalue on
+    two μ tables within 3e-3 relative of each other (measured: 1.5e-5 box,
+    9.4e-4 gravity well — both pretrainings run optax's L-BFGS, whose f32
+    line search amplifies the two sides' round-off; 1.5e-4 and 1.1e-3 with
+    torch's strong-Wolfe L-BFGS before), μ at γ = 0 within 2e-2 of the exact eigenvalue on
     both sides (this narrow, briefly pretrained net sits 2e-5 off π² and
     6e-3–9e-3 off −α₀ on either side) and μ rising with γ."""
     kw = {k: v for k, v in E2E[name].items() if k != "exact"}

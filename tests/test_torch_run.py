@@ -71,9 +71,15 @@ def test_run_main_linear_1d_sanity_on_the_cpu(tmp_path, monkeypatch, capsys):
     assert _tree(ROOT / "runs") == runs_before
 
 
-def test_run_main_refuses_what_the_port_lacks(tmp_path):
-    with pytest.raises(NotImplementedError, match="train_deeponet"):
-        run.main(["deeponet_harmonic", "--cpu", "--out", str(tmp_path)])
+def test_run_main_refuses_what_the_port_lacks(tmp_path, monkeypatch):
+    """A `numeric:` basis (physics/numeric.py, not ported) raises
+    NotImplementedError through the runner, naming the module."""
+    cfg = EXPERIMENTS["linear_1d_sanity"]
+    monkeypatch.setitem(EXPERIMENTS, "linear_1d_sanity",
+                        replace(cfg, spec=replace(cfg.spec, basis="numeric:lattice")))
+    with pytest.raises(NotImplementedError, match="physics/numeric.py"):
+        run.main(["linear_1d_sanity", "--cpu", "--train", "--epochs", "2", "--pretrain",
+                  "2", "--out", str(tmp_path)])
     assert run.main(["--list", "gpe2d_ground_state"]) == 0
 
 
