@@ -106,6 +106,26 @@ port's three paths on the card:
    timed, the 3D PL-PINN path on them, and one spectral-flow rung at
    36³; (e) `make_sngd_solver` (2D) and `pretrain_sobolev` card against
    CPU.
+11. K2's bf16 operand mode, the rotating frame and the time-dependent
+   drivers: (a) K2-bf16 at the main shape and at the bench's width 100,
+   K3-grads-bf16 and K3-sums-bf16 at harmonic_paper's six runs, against
+   their bf16 plain versions (gradients 2e-4 normalised, sums 1e-4),
+   against f32 K2 (1e-2) and beside a planted fault that must fail (the
+   weights rounded in the forward, as K1's mode does), timed against a
+   bound of the forward and backprop products at 989/3 and W̄ at 989
+   TFLOP/s; then the bf16 path: 10 steps of `fit(value_and_grad_fn=)`
+   (main shape) and `fit_ensemble` (six runs) with the relaxed bf16 vag,
+   card against CPU (1e-3, from `bf16_fit_controls.py`'s sound routes and
+   planted faults), beside the f32 route and the two planted faults,
+   which must exceed it; (b) the JAX tests'
+   rotating-frame oracles in float64 on the card (Kohn splitting, the f64
+   ADI oracle, the remainder record, card against CPU); (c)
+   `train_rotating_vortex` at full width ([2,128,128,128,2], n 128, Ω
+   0.7), cut (300 + 20 distillation, 5 LM steps), its oracle's one vortex
+   and L_z ≈ 1, the loss, its gradient and 20 Sobolev steps card against
+   CPU; (d) rotating_dynamics, gpe_dynamics (f64 and --f32),
+   gpe2d_vortex (Ω 0.9 from the committed oracle cache) and
+   gpe2d_vortex_config at cut depth. 11b–d launch no kernel.
 
 A kernel row's "ms" is device time: CUDA events around replays of a CUDA
 graph of one wrapper call; "call_ms" is back-to-back calls, host work
@@ -2131,7 +2151,10 @@ def _kernel_counters() -> dict:
               "fused_residual_runs": (k1.collocation_sums_runs, "launches"),
               "fused_grad_runs": (k2.collocation_grads_runs, "launches"),
               "rowcat_eval": (k4.collocation_sums, "launches"),
-              "rowcat_eval_bf16": (k4.collocation_sums, "bf16_launches")}
+              "rowcat_eval_bf16": (k4.collocation_sums, "bf16_launches"),
+              "fused_grad_bf16": (k2.collocation_grads, "bf16_launches"),
+              "fused_grad_runs_bf16": (k2.collocation_grads_runs, "bf16_launches"),
+              "fused_residual_runs_bf16": (k1.collocation_sums_runs, "bf16_launches")}
     return {name: (lambda fn=fn, a=a: getattr(fn, a), lambda fn=fn, a=a: setattr(fn, a, 0))
             for name, (fn, a) in fields.items()}
 
@@ -2598,6 +2621,455 @@ def phase_flow(dev):
     return rows, launches, launches_3d, out
 
 
+# ---- phase 11: K2's bf16 operand mode, the rotating frame, the dynamics drivers
+
+K2_BF16_TOL = 2e-4     # normalised, K2-bf16 against its bf16 plain version (K2's own
+#                        limit; tests/test_torch_k2_bf16.py holds the plain version to
+#                        JAX's bf16 kernel at the same bound)
+K2_BF16_VS_F32 = 1e-2  # normalised, K2-bf16 against f32 K2: the JAX docstring's ~1e-2
+# 10 relaxed bf16 fit steps, card against CPU, per loss. From
+# `experiments/bf16_fit_controls.py` (NVIDIA H100 80GB HBM3, 700 W): routes
+# that differ from the card's in f32 rounding alone (run again, points
+# reordered, the CPU) part by ≤ 6.7e-5, the planted faults (stale cotangents,
+# the output bias's gradient dropped) by ≥ 1.85e-2; the bound sits at their
+# geometric middle. (The exact bf16 step parts by 4.6e-2–8.6e-2: its
+# cotangents come from K1-bf16's sums, which round the weights too.)
+FIT_BF16_RTOL = 1e-3
+ROT_F64_ATOL = 1e-12   # the rotating stepper in f64, card against CPU
+
+
+def bound_k2_bf16(layers, n: int, runs: int = 1):
+    """(least ms, "operations" or "bytes") of K2's bf16 mode. Its forward
+    and backprop products multiply a bf16 operand by an f32 weight. The
+    card does that fastest, at full f32 accuracy, as three bf16 × bf16
+    products: the f32 weight split into three bf16 terms holds all 24 bits
+    of its mantissa, each bf16 × bf16 product is exact in an f32
+    accumulator, and the bf16 operand is one exact term — so those FLOPs
+    count at the dense bf16 rate over three (989/3 TFLOP/s; two TF32 terms,
+    495/2, would be slower and hold only ~22 bits). Its W̄ products are
+    bf16 × bf16 (the dense bf16 rate, 989). Bytes as `io_bytes`."""
+    from gpe_tpu_torch.bench import PEAK_FLOPS, matmul_flops
+    d, C = layers[0], layers[0] + 2
+    hidden = sum(2 * C * k * m for k, m in zip(layers[1:-2], layers[2:-1]))
+    wbar = (hidden + 4 * layers[-2] + 2 * (d + 1) * layers[1]) * n
+    fwd_bp = matmul_flops(layers, n, grad=False) + hidden * n
+    t_ops = runs * (fwd_bp / (PEAK_FLOPS["bf16"] / 3) + wbar / PEAK_FLOPS["bf16"]) * 1e3
+    t_mem = io_bytes(layers, n, True, runs) / PEAK_HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def phase_k2_bf16(label, spec, batch, params, gammas=None, scales=None):
+    """K2-bf16 (gammas None) or K3-grads-bf16 and K3-sums-bf16 (run-stacked
+    params, per-run γ and scale) against their bf16 plain versions (sums
+    BF16_TOL, gradients K2_BF16_TOL) with exact and stale cotangents,
+    against the f32 kernel (K2_BF16_VS_F32), and a planted fault that must
+    fail: the plain version with its weights rounded to bf16 in the forward,
+    as K1's mode rounds them. Timed as kernel, bf16 plain version and
+    library (nested autograd of the same loss in bf16). Returns the rows."""
+    import torch
+    from gpe_tpu_torch.bench import nested_autograd_sums
+    from gpe_tpu_torch.kernels import fused_grad as k2
+    from gpe_tpu_torch.kernels import fused_residual as k1
+    from gpe_tpu_torch.kernels.fused_residual import _bf16
+
+    bf16 = torch.bfloat16
+    runs = gammas is not None
+    R = scales.shape[0] if runs else 1
+    kw = dict(activation=spec.activation, p=spec.p, kinetic=spec.kinetic,
+              nonlinearity=spec.nonlinearity)
+    g0, s0 = (gammas, scales) if runs else (5.0, 0.05)
+    args = (batch["x"], batch["V"], batch["w"])
+    base = (batch.get("base_val"), batch.get("base_lap"))
+    n = batch["x"].shape[0]
+    sums_fn = k1.collocation_sums_runs if runs else k1.collocation_sums
+    grads_fn = k2.collocation_grads_runs if runs else k2.collocation_grads
+    plain_fn = (k2.collocation_grads_runs_bf16_plain if runs
+                else k2.collocation_grads_bf16_plain)
+    rounded = tuple((_bf16(W), b) for W, b in params)
+    rows, worst, sums_rel, fault_min, f32_max = [], 0.0, 0.0, math.inf, 0.0
+    cases = ((g0, s0),) if runs else ((5.0, 0.05), (100.0, 1.0))
+    for gamma, scale in cases:
+        sums = sums_fn(params, *args, gamma, scale, *base, **kw, compute_dtype=bf16)
+        if runs:
+            psums = k1.collocation_sums_runs_plain(params, *args, gamma, scale, *base,
+                                                   **kw, compute_dtype=bf16)
+            rel = _rel(sums, psums)
+            log(f"K3 sums bf16 {label}: vs bf16 plain max rel {rel:.2e}")
+            if not torch.isfinite(sums).all() or rel > BF16_TOL:
+                raise AssertionError(f"K3 sums bf16 disagrees with its plain version: "
+                                     f"{rel:.3e}")
+            sums_rel = max(sums_rel, rel)
+        cots = k1.sums_to_loss(sums, n, spec.norm_weight)[3]
+        stale = k1.sums_to_loss(sums * torch.tensor([1.3, 0.9, 1.1, 0.8],
+                                                    device=sums.device),
+                                n, spec.norm_weight)[3]
+        for mode, c in (("exact", cots), ("delayed", stale)):
+            got, s_got = grads_fn(params, *args, gamma, scale, c, *base, **kw,
+                                  compute_dtype=bf16)
+            want, s_want = plain_fn(params, *args, gamma, scale, c, *base, **kw)
+            f32, _ = grads_fn(params, *args, gamma, scale, c, *base, **kw)
+            fault, _ = plain_fn(rounded, *args, gamma, scale, c, *base, **kw)
+            torch.cuda.synchronize()
+            ab, norm = _grad_err(got, want)
+            _, vs_f32 = _grad_err(got, f32)
+            _, vs_fault = _grad_err(fault, got)
+            s_rel = _rel(s_got, s_want)
+            log(f"K2 bf16 {label} {mode} γ={gamma if not runs else 'per run'}: grads "
+                f"normalised {norm:.2e} vs bf16 plain, {vs_f32:.2e} vs f32 K2; planted "
+                f"fault (weights rounded) {vs_fault:.2e}; sums vs plain {s_rel:.2e}")
+            if (norm > K2_BF16_TOL or s_rel > BF16_TOL or vs_f32 > K2_BF16_VS_F32
+                    or not math.isfinite(ab)):
+                raise AssertionError(f"K2 bf16 {label} ({mode}) disagrees: {norm:.3e}, "
+                                     f"f32 {vs_f32:.3e}, sums {s_rel:.3e}")
+            if not vs_fault > K2_BF16_TOL:
+                raise AssertionError(f"K2 bf16 {label}: the planted fault passes "
+                                     f"({vs_fault:.3e} ≤ {K2_BF16_TOL})")
+            worst, fault_min = max(worst, ab), min(fault_min, vs_fault)
+            f32_max = max(f32_max, vs_f32)
+    sums = sums_fn(params, *args, g0, s0, *base, **kw, compute_dtype=bf16)
+    cots = k1.sums_to_loss(sums, n, spec.norm_weight)[3]
+    leaves = [t.detach().to(bf16).requires_grad_(True) for pair in params for t in pair]
+    pairs = tuple((leaves[i], leaves[i + 1]) for i in range(0, len(leaves), 2))
+    b16 = {k: v.to(bf16) for k, v in batch.items()}
+
+    def library():
+        if runs:
+            s = _nested_runs(pairs, b16, gammas, scales, spec)
+        else:
+            s = nested_autograd_sums(pairs, b16, g0, s0, spec.activation, spec.p,
+                                     spec.kinetic, spec.nonlinearity)
+        return torch.autograd.grad(torch.sum(cots.to(bf16) * s), leaves)
+
+    ms, call_ms = kernel_ms(lambda: grads_fn(params, *args, g0, s0, cots, *base, **kw,
+                                             compute_dtype=bf16), 20)
+    plain_ms = time_ms(lambda: plain_fn(params, *args, g0, s0, cots, *base, **kw), 5)
+    lib_ms = time_ms(library, 3)
+    b_ms, b_by = bound_k2_bf16(spec.layers, n, R)
+    f32_ms, _ = kernel_ms(lambda: grads_fn(params, *args, g0, s0, cots, *base, **kw), 20)
+    log(f"K2 bf16 {label} timing: kernel {ms:.4f} ms (per call {call_ms:.4f}), f32 kernel "
+        f"{f32_ms:.4f} ms, bf16 plain {plain_ms:.4f} ms, nested autograd in bf16 "
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of it")
+    rows.append({"name": "fused_grad_runs_bf16" if runs else "fused_grad_bf16",
+                 "route": "cuda", "source": "gpe_tpu_torch/csrc/fused_grad.cu",
+                 "replaces": "gpe_tpu/pallas/fused_grad.py:396", "shape": label,
+                 "max_abs_err": worst, "vs_f32_normalised": f32_max,
+                 "planted_fault_normalised": fault_min, "ms": ms, "call_ms": call_ms,
+                 "f32_ms": f32_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": lib_ms})
+    if runs:
+        s_ms, s_call = kernel_ms(lambda: k1.collocation_sums_runs(
+            params, *args, g0, s0, *base, **kw, compute_dtype=bf16), 50)
+        s_plain = time_ms(lambda: k1.collocation_sums_runs_plain(
+            params, *args, g0, s0, *base, **kw, compute_dtype=bf16), 5)
+        s_lib = time_ms(lambda: _nested_runs(tuple((W.to(bf16), b.to(bf16))
+                                                   for W, b in params), b16, gammas,
+                                             scales, spec), 3)
+        sb_ms, sb_by = bound(spec.layers, n, grad=False, runs=R, operands="bf16")
+        log(f"K3 sums bf16 {label} timing: kernel {s_ms:.4f} ms (per call {s_call:.4f}), "
+            f"bf16 plain {s_plain:.4f} ms, nested autograd in bf16 {s_lib:.4f} ms, bound "
+            f"{sb_ms:.4f} ms ({sb_by})")
+        rows.append({"name": "fused_residual_runs_bf16", "route": "cuda",
+                     "source": "gpe_tpu_torch/csrc/fused_residual.cu",
+                     "replaces": "gpe_tpu/pallas/fused_residual.py:246", "shape": label,
+                     "max_abs_err": float((sums - k1.collocation_sums_runs_plain(
+                         params, *args, g0, s0, *base, **kw,
+                         compute_dtype=bf16)).abs().max()),
+                     "max_rel_err": sums_rel, "ms": s_ms, "call_ms": s_call,
+                     "plain_ms": s_plain, "bound_ms": sb_ms, "bound_by": sb_by,
+                     "library_ms": s_lib})
+    return rows
+
+
+def _hist_rel(got, want) -> float:
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / np.abs(want)))
+
+
+def phase_bf16_fits(dev):
+    """11a's path: `bf16_fit_controls.fits` — 10 steps of
+    `fit(value_and_grad_fn=)` with the default relaxed bf16 vag at the main
+    shape and 10 of `fit_ensemble` with it (its run-axis twin on K3) at
+    harmonic_paper's six runs — on the card with every launch counter set
+    to 0 just before and read just after; then the same steps on the CPU
+    from the same params (FIT_BF16_RTOL per loss), the f32 route on the
+    card (within the bench's bf16 limit LOSS_TOL_BF16), and each planted
+    fault of `sweep_controls.FAULTS` in the relaxed bf16 step, which must
+    part from the card's route by more than FIT_BF16_RTOL in both fits.
+    Returns (launches, record)."""
+    import torch
+    from gpe_tpu_torch.bench import LOSS_TOL_BF16
+    from gpe_tpu_torch.experiments import bf16_fit_controls as bc
+    from gpe_tpu_torch.experiments.sweep_controls import FAULTS
+
+    probs = bc.problems(dev)
+    counters = _kernel_counters()
+    for _, reset in counters.values():
+        reset()
+    t0 = time.perf_counter()
+    card = bc.fits(probs, dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = {name: read() for name, (read, _) in counters.items()}
+    log(f"phase 11a bf16 fits launches {launches} ({card_s:.2f} s)")
+    need = ("fused_grad_bf16", "fused_grad_runs_bf16", "fused_residual_runs_bf16")
+    if not all(launches[k] for k in need) or launches["fused_grad"] \
+            or launches["fused_grad_runs"]:
+        raise AssertionError(f"the bf16 fits did not run on the bf16 kernels: {launches}")
+    t0 = time.perf_counter()
+    host = bc.fits(probs, torch.device("cpu"))
+    rec = {"card_s": card_s, "cpu_s": time.perf_counter() - t0,
+           "vs_cpu": bc.gaps(card, host),
+           "vs_f32": bc.gaps(card, bc.fits(probs, dev, dtype=torch.float32)),
+           "faults": {f: bc.gaps(bc.fits(probs, dev, f), card) for f in FAULTS}}
+    for i, what in enumerate(("fit", "fit_ensemble")):
+        log(f"bf16 {what}: 10-step losses card vs CPU max rel {rec['vs_cpu'][what]:.2e}, "
+            f"vs the f32 route {rec['vs_f32'][what]:.2e}, planted faults "
+            f"{ {f: f'{g[what]:.2e}' for f, g in rec['faults'].items()} }; "
+            f"last loss {card[i].loss_history[..., -1]}")
+    if not (all(v <= FIT_BF16_RTOL for v in rec["vs_cpu"].values())
+            and all(v < LOSS_TOL_BF16 for v in rec["vs_f32"].values())
+            and all(v > FIT_BF16_RTOL for g in rec["faults"].values() for v in g.values())):
+        raise AssertionError(f"bf16 fits: {rec}")
+    return launches, rec
+
+
+def phase_rotating_oracles(dev):
+    """11b: tests/test_rotating_dynamics.py's oracles in float64 on the card
+    — rotating-frame Kohn splitting (centre 2e-5, norm 1e-11, energy 2e-5),
+    agreement with the port's f64 ADI oracle (μ, L_z 1e-9, overlap 1e-11),
+    the remainder record — and `evolve_rotating` card against CPU
+    (ROT_F64_ATOL)."""
+    import numpy as np
+    import torch
+    from gpe_tpu_torch.dynamics import evolve_rotating, rotating_ground_state
+    from gpe_tpu_torch.validate.rotating import rotating_imaginary_time
+
+    def grid(n, half):
+        x = np.linspace(-half, half, n, endpoint=False)
+        X, Y = np.meshgrid(x, x, indexing="ij")
+        return x, x[1] - x[0], X, Y
+
+    out = {}
+    x, dx, X, Y = grid(96, 8.0)
+    V = 0.5 * (X ** 2 + Y ** 2)
+    psi0 = np.exp(-0.5 * ((X - 0.5) ** 2 + Y ** 2))
+    psi0 = psi0 / np.sqrt(np.sum(psi0 ** 2) * dx * dx)
+    t0 = time.perf_counter()
+    _, obs = evolve_rotating(psi0, V, dx, 2e-3, 3000, 20.0, 0.5, lb=float(x[0]),
+                             record_every=100, device=dev)
+    t = obs["t"]
+    kohn = max(float(np.max(np.abs(obs["center"][:, 0] - 0.5 * np.cos(t) * np.cos(0.5 * t)))),
+               float(np.max(np.abs(obs["center"][:, 1] + 0.5 * np.cos(t) * np.sin(0.5 * t)))))
+    norm = float(np.max(np.abs(obs["norm"] - 1.0)))
+    energy = float(np.max(np.abs(obs["energy"] / obs["energy"][0] - 1.0)))
+    out["kohn"] = {"centre": kohn, "norm": norm, "energy": energy,
+                   "s": time.perf_counter() - t0}
+    log(f"11b Kohn splitting (96², 3000 f64 steps on the card): centre {kohn:.2e}, "
+        f"norm {norm:.2e}, energy {energy:.2e} ({out['kohn']['s']:.1f} s)")
+    if not (kohn < 2e-5 and norm < 1e-11 and energy < 2e-5):
+        raise AssertionError(f"rotating Kohn oracle fails on the card: {out['kohn']}")
+    rng = np.random.default_rng(3)
+    seed = np.exp(-(X ** 2 + Y ** 2) / 2.0) * ((X - 0.3) + 1j * (Y + 0.2))
+    seed = seed + 0.01 * (rng.standard_normal(seed.shape)
+                          + 1j * rng.standard_normal(seed.shape))
+    mu_o, psi_o, lz_o = rotating_imaginary_time(V, x, 30.0, 0.7, tau=2e-3, steps=1200,
+                                                tol=0.0, psi0=seed, device=dev)
+    mu, psi, lz = rotating_ground_state(V, dx, 30.0, 0.7, tau=2e-3, steps=1200, tol=0.0,
+                                        lb=float(x[0]), psi0=seed, chunk=200, device=dev)
+    ov = abs(float(abs(torch.sum(torch.conj(psi) * psi_o) * dx * dx)) - 1.0)
+    out["oracle"] = {"mu": abs(mu - mu_o), "lz": abs(lz - lz_o), "overlap": ov}
+    log(f"11b against the f64 ADI oracle: |Δμ| {out['oracle']['mu']:.2e}, |ΔL_z| "
+        f"{out['oracle']['lz']:.2e}, |overlap − 1| {ov:.2e}")
+    if not (out["oracle"]["mu"] < 1e-9 and out["oracle"]["lz"] < 1e-9 and ov < 1e-11):
+        raise AssertionError(f"the stepper leaves the f64 oracle: {out['oracle']}")
+    x, dx, X, Y = grid(64, 6.0)
+    V = 0.5 * (X ** 2 + Y ** 2)
+    p0 = np.exp(-0.5 * ((X - 0.4) ** 2 + Y ** 2)).astype(complex)
+    p0 = p0 / np.sqrt(np.sum(np.abs(p0) ** 2) * dx * dx)
+    (pa, oa), (pb, ob), (pc, oc) = (
+        evolve_rotating(p0, V, dx, 1e-3, 130, 5.0, 0.3, lb=float(x[0]),
+                        record_every=every, device=device)
+        for every, device in ((50, dev), (130, dev), (50, torch.device("cpu"))))
+    rem = len(oa["t"]) == 4 and abs(oa["t"][-1] - 0.130) < 1e-12
+    same = float((pa - pb).abs().max())
+    cpu_err = max(float((pa.cpu() - pc).abs().max()),
+                  max(float(np.max(np.abs(oa[k] - oc[k]))) for k in
+                      ("norm", "energy", "mu", "lz", "center", "width_sq")))
+    out["remainder"] = {"records": len(oa["t"]), "vs_one_record": same,
+                        "card_vs_cpu": cpu_err}
+    log(f"11b remainder record {len(oa['t'])} rows, ψ vs one record {same:.2e}; card vs "
+        f"CPU {cpu_err:.2e}")
+    if not (rem and same < 1e-14 and cpu_err < ROT_F64_ATOL):
+        raise AssertionError(f"remainder record / card vs CPU: {out['remainder']}")
+    return out
+
+
+def phase_vortex_trainer(dev):
+    """11c: `train_rotating_vortex` at full width ([2,128,128,128,2], n 128,
+    sin/siren, w0 3, γ 50, Ω 0.7, Sobolev at 128²), cut: 300 distillation
+    and 20 L-BFGS steps, 5 LM steps of 100 CG iterations. The f64 oracle
+    (on the card) must hold one vortex and L_z within 0.05 of 1; the rotating
+    loss (1e-5) and its flat gradient (1e-4 of its largest entry) at the
+    initial params card against CPU, and 20 Sobolev Adam steps card against
+    CPU (loss 1e-4)."""
+    import numpy as np
+    import torch
+    from gpe_tpu_torch.models.mlp import init_mlp
+    from gpe_tpu_torch.rotating import (RotatingSpec, make_rotating_batch,
+                                        make_rotating_loss_fn, train_rotating_vortex)
+    from gpe_tpu_torch.train.pretrain import AdamSteps, _leaves, _pairs, _sobolev_loss
+
+    spec = RotatingSpec(n_points=128, layers=(2, 128, 128, 128, 2), activation="sin",
+                        init_scheme="siren", w0=3.0, gamma=50.0, omega=0.7)
+    out = {}
+    cpu = torch.device("cpu")
+    p = {d.type: init_mlp(spec.layers, "siren", w0=3.0,
+                          generator=torch.Generator().manual_seed(0), device=d)
+         for d in (dev, cpu)}
+    b = {d.type: make_rotating_batch(spec, d) for d in (dev, cpu)}
+    loss_fn = make_rotating_loss_fn(spec)
+    vals = {}
+    for d in ("cuda", "cpu"):
+        leaves = _leaves(p[d])
+        with torch.enable_grad():
+            total, aux = loss_fn(_pairs(leaves), b[d], 50.0, 0.7)
+            grads = torch.autograd.grad(total, leaves)
+        vals[d] = (float(total.detach()), torch.cat([g.cpu().reshape(-1) for g in grads]))
+    # over the flat gradient: the bias gradients vanish by the grid's
+    # symmetry at this init (~1e-10 of the largest in f64)
+    gerr = float((vals["cuda"][1] - vals["cpu"][1]).abs().max()
+                 / vals["cpu"][1].abs().max())
+    lerr = abs(vals["cuda"][0] - vals["cpu"][0]) / abs(vals["cpu"][0])
+    hist = {}
+    x = b["cpu"]["x"]
+    tval = torch.stack([torch.exp(-0.5 * (x ** 2).sum(-1)), 0.1 * x[:, 0]], -1)
+    tjac = torch.stack([-x * tval[:, :1], torch.stack([0.1 * torch.ones_like(x[:, 0]),
+                                                       torch.zeros_like(x[:, 0])], -1)],
+                       dim=-1)
+    for d in (dev, cpu):
+        leaves = _leaves(p[d.type])
+        loss = _sobolev_loss(x.to(d), tval.to(d), tjac.to(d), spec.activation, 0.1)
+        steps = AdamSteps(lambda: loss(leaves), leaves, 1e-3, d.type == "cuda")
+        hist[d.type] = [float(steps.run(1)) for _ in range(20)]
+    aerr = _hist_rel(hist["cuda"], hist["cpu"])
+    out["card_vs_cpu"] = {"loss": lerr, "grads": gerr, "sobolev_adam_20": aerr}
+    log(f"11c card vs CPU at full width: loss {lerr:.2e}, gradient {gerr:.2e} "
+        f"normalised; 20 Sobolev Adam steps {aerr:.2e}")
+    if not (lerr < 1e-5 and gerr < 1e-4 and aerr < 1e-4):
+        raise AssertionError(f"the rotating trainer leaves the CPU: {out['card_vs_cpu']}")
+    t0 = time.perf_counter()
+    res = train_rotating_vortex(spec, fit_epochs=300, lbfgs_steps=20, polish_steps=5,
+                                polish_cg_iters=100, sobolev=True, sobolev_n=128,
+                                verbose=True, device=dev)
+    out["trainer"] = {"s": time.perf_counter() - t0, "mu": res.mu, "mu_grid": res.mu_grid,
+                      "lz": res.lz, "lz_grid": res.lz_grid, "n_vortices": res.n_vortices,
+                      "pde": res.pde_loss, "fit_mse": res.fit_mse}
+    log(f"11c train_rotating_vortex (cut): {json.dumps(out['trainer'])}")
+    if not (res.n_vortices == 1 and abs(res.lz_grid - 1.0) < 0.05
+            and all(np.isfinite([res.mu, res.lz, res.pde_loss, res.energy]))):
+        raise AssertionError(f"the Ω = 0.7 oracle/trainer: {out['trainer']}")
+    return out
+
+
+def phase_dynamics_drivers(dev, tmp):
+    """11d: the four drivers at cut depth on the card into `tmp`:
+    rotating_dynamics (n 128, 3,000 spin-up steps, 1,000 + 4,000 real-time
+    steps: the Kohn fit within 1e-3 of 1 ± Ω, norm drift < 1e-10);
+    gpe_dynamics 2D in f64 and --f32 (n 256, the default 6,000 steps — at
+    1,200 the kinetic phase per step reaches 23 rad and the breathing fit
+    fails in f64 too — 3,000 ground-state steps; Kohn ω within 1e-3 of 1,
+    breathing within 1e-2 of 2); gpe2d_vortex
+    at Ω 0.9 from the committed oracle cache (300 + 10 distillation steps,
+    2 LM steps); gpe2d_vortex_config with a cut configuration
+    ({"v": [64, [80]]}, 2,000 + 1,000 steps) and its net stage."""
+    import numpy as np
+    from gpe_tpu_torch.experiments import (gpe2d_vortex, gpe2d_vortex_config,
+                                           gpe_dynamics, rotating_dynamics)
+
+    out, t0 = {}, time.perf_counter()
+    rotating_dynamics.main(["--n", "128", "--spinup-steps", "3000", "--rt-steps", "1000",
+                            "--kohn-steps", "4000", "--out", f"{tmp}/rd"])
+    rd = json.load(open(f"{tmp}/rd/summary.json"))
+    kohn = rd["kohn_splitting"]
+    out["rotating_dynamics"] = {"s": time.perf_counter() - t0, "spinup": rd["spinup_final"],
+                                "omega_plus_err": kohn["omega_plus_abs_err"],
+                                "omega_minus_err": kohn["omega_minus_abs_err"],
+                                "norm_drift": rd["stationarity"]["norm_drift"]}
+    if not (kohn["omega_plus_abs_err"] < 1e-3 and kohn["omega_minus_abs_err"] < 1e-3
+            and rd["stationarity"]["norm_drift"] < 1e-10):
+        raise AssertionError(f"rotating_dynamics (cut): {out['rotating_dynamics']}")
+    for f32 in (False, True):
+        t0 = time.perf_counter()
+        gpe_dynamics.main(["--n", "256", "--steps", "6000", "--gs-steps", "3000",
+                           "--out", f"{tmp}/gd"] + (["--f32"] if f32 else []))
+        s = json.load(open(f"{tmp}/gd/summary{'_f32' if f32 else ''}.json"))
+        key = "f32" if f32 else "f64"
+        out[f"gpe_dynamics_{key}"] = {"s": time.perf_counter() - t0,
+                                      "kohn": s["kohn_dipole"]["abs_err"],
+                                      "breathing": s["breathing_2d"]["abs_err"],
+                                      "norm_drift": s["norm_drift"],
+                                      "throughput": s["throughput_grid_pt_steps_per_sec"]}
+        if not (s["kohn_dipole"]["abs_err"] < 1e-3 and s["breathing_2d"]["abs_err"] < 1e-2):
+            raise AssertionError(f"gpe_dynamics (cut, {key}): {out[f'gpe_dynamics_{key}']}")
+    t0 = time.perf_counter()
+    gpe2d_vortex.main(["--omegas", "0.9", "--fit-epochs", "300", "--lbfgs-steps", "10",
+                       "--polish-steps", "2", "--out", f"{tmp}/gv"])
+    row = json.load(open(f"{tmp}/gv/summary.json"))["results"][0]
+    out["gpe2d_vortex"] = {"s": time.perf_counter() - t0, "mu_net": row["mu_net"],
+                           "mu_grid": row["mu_grid"], "oracle": row["settings"]["oracle"],
+                           "n_vortices": row["n_vortices"]}
+    if not (row["settings"]["oracle"] == "v7" and row["n_vortices"] == 7
+            and np.isfinite(row["mu_net"])):
+        raise AssertionError(f"gpe2d_vortex (cut): {out['gpe2d_vortex']}")
+    t0 = time.perf_counter()
+    table = gpe2d_vortex_config.stage_oracle(2000, 1000, 2e-3, f"{tmp}/gvc",
+                                             {"v": (64, (80,))}, dev)
+    rec = gpe2d_vortex_config.stage_net(64, 64, 100, 5, 1, cg_iters=20, sobolev_n=64,
+                                        out=f"{tmp}/gvc", device=dev)
+    out["gpe2d_vortex_config"] = {"s": time.perf_counter() - t0,
+                                  "mu_star": table["v"]["mu_star"],
+                                  "mu_net": rec["per_config"]["v"]["mu_net"]}
+    if not np.isfinite(rec["per_config"]["v"]["mu_net"]):
+        raise AssertionError(f"gpe2d_vortex_config (cut): {out['gpe2d_vortex_config']}")
+    log(f"11d drivers (cut): {json.dumps(out)}")
+    return out
+
+
+def phase_rotating(dev):
+    """Phase 11 (a)–(d); returns (the bf16 kernel rows, the launches of 11a's
+    fits, of 11b–d (all 0), the record)."""
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    _, spec, batch, params = main_shape(dev)
+    rows = phase_k2_bf16("main", spec, batch, params)
+    del batch, params
+    bspec, bbatch, bparams = bench_shape(dev)
+    rows[0]["bench_shape"] = phase_k2_bf16("bench", bspec, bbatch, bparams)[0]
+    del bbatch, bparams
+    _, rspec, rbatch, rparams, gammas, scales = runs_shape(dev)
+    rows += phase_k2_bf16("runs", rspec, rbatch, rparams, gammas, scales)
+    del rbatch, rparams
+    torch.cuda.empty_cache()
+    fit_launches, out = phase_bf16_fits(dev)
+    counters = _kernel_counters()
+    for _, reset in counters.values():
+        reset()
+    out["oracles"] = phase_rotating_oracles(dev)
+    out["trainer"] = phase_vortex_trainer(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["drivers"] = phase_dynamics_drivers(dev, tmp)
+    launches = {name: read() for name, (read, _) in counters.items()}
+    log(f"phase 11 (b–d) launches {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"phase 11 (b–d) launched kernels: {launches}")
+    out["phase_s"] = time.perf_counter() - t0
+    return rows, fit_launches, launches, out
+
+
 def main() -> int:
     try:
         import torch
@@ -2696,11 +3168,19 @@ def main() -> int:
     for row in d3_rows:
         row["launches_by_path"] = {"plpinn_3d": row["launches"]}
     kernels += d3_rows
+    t0 = time.perf_counter()
+    bf16_rows, bf16_fit_launches, rotating_launches, rotating = phase_rotating(dev)
+    phases["rotating"] = time.perf_counter() - t0
+    for row in bf16_rows:
+        row["launches"] = bf16_fit_launches[row["name"]]
+        row["launches_by_path"] = {"bf16_fits": row["launches"]}
+    kernels += bf16_rows
     by_path = {"cross_potential": cross_launches, "gravity_well_packed": gw_launches,
                "comparison": comparison, "beta_sweep": sweep_launches,
                "trainer_configs": trainer_launches,
                "zoo_curriculum_helmholtz": zoo_launches,
-               "deeponet_flagships_sngd": flow_launches, "plpinn_3d": plpinn3d_launches}
+               "deeponet_flagships_sngd": flow_launches, "plpinn_3d": plpinn3d_launches,
+               "rotating_dynamics_drivers": rotating_launches}
     for k in kernels:
         if "launches" not in k:
             k["launches"] = launches[k["name"]]
@@ -2715,7 +3195,8 @@ def main() -> int:
                     "run_family": {k: family[k] for k in ("wall_s", "seconds",
                                                           "launches")},
                     "beta_sweep": sweep, "trainer_configs_s": trainer_s,
-                    "mesh": mesh, "zoo": zoo, "flow": flow}, default=str))
+                    "mesh": mesh, "zoo": zoo, "flow": flow, "rotating": rotating},
+                   default=str))
     check_no_children()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,8 @@ iteration doing the whole evaluation or step:
   and relaxed steps (K2, with K1 in the exact step);
 - the fused eval on K1 and on K4, each in f32 and with bf16 GEMM operands;
 - the GEMM-engine propagator `evolve_gemm` on a 256² periodic grid, γ = 100,
-  per step: a 400-step call less a 200-step call, so the host build of the
+  per step: a 400-step call less a 200-step call (doubled until the
+  difference exceeds the spread of the repeats), so the host build of the
   propagators, the copies and the final read of the observables cancel;
 - the nested-autograd eval of the same loss (the reference's route), the
   yardstick of `vs_baseline`.
@@ -231,18 +232,33 @@ def _train_ms(vag, params, batch, iters, device, stateful=False):
 def propagator_ms(engine, device, n: int = DYN_N, steps: int = DYN_STEPS) -> float:
     """ms per step of `engine` (split_step.evolve or gemm_step.evolve_gemm)
     on dynamics_grid(n), γ = 100, dt = 1e-3, observed at the ends: the best
-    of three 2·steps calls less the best of three steps calls, over steps.
+    of three 2·S-step calls less the best of three S-step calls, over S.
     Each call builds its propagators on the host, copies them over and reads
-    the observables back; the difference cancels that."""
+    the observables back; the difference cancels that. The S- and 2·S-step
+    calls alternate, and the difference counts only once it exceeds the
+    spread (max − min) of either set of repeats: until then S doubles, from
+    `steps`, at most five times; past that the time does not resolve and
+    ValueError is raised."""
     psi, V, dx, lb = dynamics_grid(n)
     run = lambda k: engine(psi, V, dx, 1e-3, k, GAMMA, bc="periodic", lb=lb,
                            record_every=k, device=device)
     _, obs = run(steps)
     if not np.all(np.isfinite(obs["norm"])) or abs(obs["norm"][-1] - 1.0) > 1e-2:
         raise ParityError(f"{engine.__name__} lost the norm: {obs['norm']}")
-    best = lambda k: min(time_ms(lambda: run(k), 1, device, warmup=0)
-                         for _ in range(3))
-    return (best(2 * steps) - best(steps)) / steps
+    S = steps
+    for _ in range(6):
+        t1, t2 = [], []
+        for _ in range(3):
+            t1.append(time_ms(lambda: run(S), 1, device, warmup=0))
+            t2.append(time_ms(lambda: run(2 * S), 1, device, warmup=0))
+        diff = min(t2) - min(t1)
+        spread = max(max(t1) - min(t1), max(t2) - min(t2))
+        if diff > spread:
+            return diff / S
+        S *= 2
+    raise ValueError(f"{engine.__name__}: the time does not resolve: the "
+                     f"{S // 2}-step difference {diff} ms against the repeats' "
+                     f"spread {spread} ms")
 
 
 def measure(device=None, n_side: int = N_SIDE, layers=LAYERS, iters: int = ITERS,

@@ -18,7 +18,7 @@
 // with the f32 reference): K2's reverse GEMMs, K1's f32 forward GEMMs
 // (forward_tile's MMA flag) and K4's f32 GEMMs (64 x 64 warp blocks of its
 // 128 x 256 output), so f32 parity holds at the TF32 rate over three. In
-// the bf16 operand mode (template flag BF16, K1 and K4 only) every GEMM operand —
+// the bf16 operand mode (template flag BF16) of K1 and K4 every GEMM operand —
 // weights, channel state, layer 0's input x — is a bf16 value (nearest
 // even): the state and x are rounded where they are written (`op`), the
 // hidden weights by mma_gemm_bf16 as it packs its fragments (K4's padded
@@ -26,7 +26,9 @@
 // on bf16 tensor cores (mma.sync m16n8k16, f32 accumulators): a bf16 x bf16
 // product is exact in f32, so this is the TPU's bf16-MXU contract with f32
 // accumulation, one product per term, no split. Biases, activations, the
-// Hamiltonian and the sums stay f32.
+// Hamiltonian and the sums stay f32. K2's bf16 mode rounds the activation
+// operands only (forward_tile's RW = false): its weights stay f32, as the
+// JAX kernel's bf16 x f32 products promote (fused_grad.cu).
 // Weights that a kernel stages more than once come from a copy padded to
 // 128 columns (K4: the host's; K2: its layout kernel's), by cp.async; K1
 // stages a run's weights once per block and run by 4-byte cp.async.
@@ -387,15 +389,16 @@ __device__ __forceinline__ void mma_store(float* dst, const float (&acc)[MT][NTL
 // Jacobian rows, Laplacian) is written to store[l*128*128 + unit*128 + m].
 // W_l (l = 1..L-2) sits in the smem tile wbase + (l-1)*TILE_FLOATS when the
 // weights are resident, or is loaded here into wbase when `stream` is set.
-// BF16: the state written to X (the next GEMM's operand), x and W0 are
-// rounded (K2 calls it with BF16 = false and a `store`). MMA: the hidden
+// BF16: the state written to X (the next GEMM's operand) and x are
+// rounded, and with RW (round weights, the default) W0 too; K2 calls it
+// with a `store` and RW = false. MMA: the hidden
 // GEMMs run on tensor cores, the output cut to the layer's width — in
 // 3xTF32 (mma_gemm), or with BF16 on bf16 tensor cores (mma_gemm_bf16,
 // which rounds the weights as it packs them) — instead of FFMA gemm_tile
 // (K1 sets it, K2 does not). WROWS: the rows of a resident weight tile and
 // of X — 64 when every hidden width is ≤ 64 (K1's narrow mode, MMA only),
 // else 128.
-template <int D, bool BF16 = false, bool MMA = false, int WROWS = MAXW>
+template <int D, bool BF16 = false, bool MMA = false, int WROWS = MAXW, bool RW = BF16>
 __device__ void forward_tile(float* X, const float* xs, const float* __restrict__ prm,
                              const Net& net, int act, float* wbase, bool stream,
                              float* __restrict__ store) {
@@ -411,7 +414,7 @@ __device__ void forward_tile(float* X, const float* xs, const float* __restrict_
       float z = 0.f, g2 = 0.f;
 #pragma unroll
       for (int i = 0; i < D; ++i) {
-        const float wi = op<BF16>(W0[i * N + o]);
+        const float wi = op<BF16 && RW>(W0[i * N + o]);
         z = fmaf(op<BF16>(xs[r * D + i]), wi, z);
         g2 = fmaf(wi, wi, g2);
       }
@@ -422,7 +425,7 @@ __device__ void forward_tile(float* X, const float* xs, const float* __restrict_
       xo[r] = op<BF16>(s0);
 #pragma unroll
       for (int i = 0; i < D; ++i)
-        xo[(1 + i) * T + r] = op<BF16>(s1 * op<BF16>(W0[i * N + o]));
+        xo[(1 + i) * T + r] = op<BF16>(s1 * op<BF16 && RW>(W0[i * N + o]));
       xo[(C - 1) * T + r] = op<BF16>(s2 * g2);
       if (store) {
         float* so = store + o * MAXW;

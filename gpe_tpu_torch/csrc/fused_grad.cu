@@ -68,6 +68,19 @@
 //   six width-64 runs at 96 slots); a second launch sums each run's S rows in
 //   a fixed order (double) — deterministic, no atomics.
 // - Ragged edge: points past n get zero cotangents and are masked out of S.
+// - compute_dtype = bf16 (template flag BF16, single runs and the run axis):
+//   the JAX kernel's `cast` of the activation operands, its weights f32
+//   (fused_grad.py:205-208, 310-312, 332-334). Forward: x and the channel
+//   state are rounded to bf16 as they are staged (common.cuh `op`; W0 and
+//   the hidden weights stay f32, FFMA products), so the sums are those of
+//   bf16 operands times f32 weights. Reverse: Z̄ is rounded before the
+//   backprop GEMM, which stays 3xTF32 (a bf16 value is exact in TF32, so
+//   its split has no low part and each product with an f32 weight keeps
+//   f32 accuracy); W̄ = bf16(In)ᵀ·bf16(Z̄) runs on bf16 tensor cores
+//   (common.cuh mma_gemm_bf16, f32 accumulators), layer 0's and the last
+//   layer's W̄ sums round the same operands; b̄ sums the unrounded Z̄. Bound:
+//   the forward and backprop products at the TF32 rate over two (a bf16 x
+//   f32 product needs the weight's two TF32 terms), W̄ at the bf16 rate.
 #include "common.cuh"
 
 namespace gpe {
@@ -150,7 +163,7 @@ __device__ __forceinline__ void add_tile(float* __restrict__ dst, const float* T
 // arithmetic, W_l staged in Y (odd l) or Z (even l). W₁ and W₂ were started
 // at the end of the previous tile; W_{l+2} starts once layer l's GEMM has
 // read its tile.
-template <int D>
+template <int D, bool BF16>
 __device__ void forward_deep(float* X, const float* xs, const float* __restrict__ prm,
                              const float* wp, const Net& net, const Pad& pad, int act,
                              float* Y, float* Z, float* __restrict__ store) {
@@ -158,7 +171,7 @@ __device__ void forward_deep(float* X, const float* xs, const float* __restrict_
   const int L = net.n_layers;
   Net head = net;
   head.n_layers = 2;                     // forward_tile runs layer 0 alone
-  forward_tile<D>(X, xs, prm, head, act, Y, false, store);
+  forward_tile<D, BF16, false, MAXW, false>(X, xs, prm, head, act, Y, false, store);
   for (int l = 1; l <= L - 2; ++l) {
     const int K = net.dims[l], N = net.dims[l + 1];
     float* Wl = (l & 1) ? Y : Z;
@@ -185,10 +198,10 @@ __device__ void forward_deep(float* X, const float* xs, const float* __restrict_
       const float lz = xo[(C - 1) * T + r];
       float s0, s1, s2, s3;
       act_quad(act, z, s0, s1, s2, s3);
-      xo[r] = s0;
+      xo[r] = op<BF16>(s0);
 #pragma unroll
-      for (int i = 0; i < D; ++i) xo[(1 + i) * T + r] = s1 * jz[i];
-      xo[(C - 1) * T + r] = s1 * lz + s2 * g2;
+      for (int i = 0; i < D; ++i) xo[(1 + i) * T + r] = op<BF16>(s1 * jz[i]);
+      xo[(C - 1) * T + r] = op<BF16>(s1 * lz + s2 * g2);
       float* so = sl + o * MAXW;
       so[r] = z;
 #pragma unroll
@@ -199,7 +212,7 @@ __device__ void forward_deep(float* X, const float* xs, const float* __restrict_
   __syncthreads();
 }
 
-template <int D>
+template <int D, bool BF16>
 __global__ void __launch_bounds__(NT, 1)
 grads_kernel(const float* __restrict__ x, const float* __restrict__ V,
              const float* __restrict__ w, const float* __restrict__ bval,
@@ -256,8 +269,9 @@ grads_kernel(const float* __restrict__ x, const float* __restrict__ V,
       }
       cp_async_wait_all();
       __syncthreads();                 // xs, and W₁, W₂ staged in Y, Z
-      if (L <= 4) forward_tile<D>(X, xs, prm, net, ph.act, Y, false, store);
-      else forward_deep<D>(X, xs, prm, wp, net, pad, ph.act, Y, Z, store);
+      if (L <= 4) forward_tile<D, BF16, false, MAXW, false>(X, xs, prm, net, ph.act, Y,
+                                                            false, store);
+      else forward_deep<D, BF16>(X, xs, prm, wp, net, pad, ph.act, Y, Z, store);
       if (L >= 4) prefetch_w(padded(wp, pad.t_off[L - 2]), net.dims[L - 1], Z);
       last_layer<D>(X, prm, net, outv);
 
@@ -288,7 +302,8 @@ grads_kernel(const float* __restrict__ x, const float* __restrict__ V,
       }
       __syncthreads();
 
-      // ---- last layer (linear, width 1): its input is X (layer L-2's output)
+      // ---- last layer (linear, width 1): its input is X (layer L-2's output,
+      //      rounded in the bf16 mode)
       {
         const int K = net.dims[L - 1];
         const float* Wl = prm + net.w_off[L - 1];
@@ -296,7 +311,7 @@ grads_kernel(const float* __restrict__ x, const float* __restrict__ V,
           const float* xk = X + k * LDS;
           float s = 0.f;
           for (int r = 0; r < T; ++r)
-            s += xk[r] * vbar[r] + xk[(C - 1) * T + r] * lbar[r];
+            s += xk[r] * op<BF16>(vbar[r]) + xk[(C - 1) * T + r] * op<BF16>(lbar[r]);
           part[net.w_off[L - 1] + k] += s;
         }
         if (threadIdx.x == 0) {
@@ -308,8 +323,8 @@ grads_kernel(const float* __restrict__ x, const float* __restrict__ V,
         // cotangents of layer L-2's output: value/Laplacian rows only
         for (int idx = threadIdx.x; idx < K * M; idx += NT) {
           const int k = idx / M, m = idx % M, c = m / T, r = m % T;
-          X[k * LDS + m] = (c == 0) ? vbar[r] * Wl[k]
-                           : (c == C - 1) ? lbar[r] * Wl[k] : 0.f;
+          X[k * LDS + m] = (c == 0) ? op<BF16>(vbar[r]) * Wl[k]
+                           : (c == C - 1) ? op<BF16>(lbar[r]) * Wl[k] : 0.f;
         }
       }
 
@@ -323,8 +338,10 @@ grads_kernel(const float* __restrict__ x, const float* __restrict__ V,
                      net.dims[1], Y);
         // (a) pre-activation cotangents Z̄ from the output cotangents in X:
         //     z̄ = σ′v̄ + σ″Σᵢjzᵢj̄ᵢ + (σ″lz + σ‴Σᵢjzᵢ²)l̄,  jz̄ᵢ = σ′j̄ᵢ + 2σ″jzᵢl̄,
-        //     lz̄ = σ′l̄.  Written to X (in place, [unit][m]) and, above layer
-        //     0, to Y ([m][unit]; at layer 0 Y takes the next tile's W₁).
+        //     lz̄ = σ′l̄.  Written to X (in place, [unit][m]; above layer 0
+        //     rounded in the bf16 mode, the backprop GEMM's operand) and,
+        //     above layer 0, to Y ([m][unit], unrounded: b̄ sums it, the bf16
+        //     W̄ GEMM rounds it; at layer 0 Y takes the next tile's W₁).
         for (int idx = threadIdx.x; idx < N * T; idx += NT) {
           const int o = idx / T, r = idx % T;
           const float* so = pre + o * MAXW;
@@ -343,13 +360,14 @@ grads_kernel(const float* __restrict__ x, const float* __restrict__ V,
           act_quad(ph.act, z, s0, s1, s2, s3);
           const float zb = s1 * vb + s2 * jj + (s2 * lz + s3 * g2) * lb;
           const float lzb = s1 * lb;
-          xo[r] = zb;
-          xo[(C - 1) * T + r] = lzb;
+          const bool rnd = BF16 && l > 0;
+          xo[r] = rnd ? op<true>(zb) : zb;
+          xo[(C - 1) * T + r] = rnd ? op<true>(lzb) : lzb;
           float jzb[D];
 #pragma unroll
           for (int i = 0; i < D; ++i) {
             jzb[i] = s1 * jb[i] + 2.f * s2 * jz[i] * lb;
-            xo[(1 + i) * T + r] = jzb[i];
+            xo[(1 + i) * T + r] = rnd ? op<true>(jzb[i]) : jzb[i];
           }
           if (l > 0) {
             Y[r * LDS + o] = zb;
@@ -372,7 +390,7 @@ grads_kernel(const float* __restrict__ x, const float* __restrict__ V,
               db += zb;
 #pragma unroll
               for (int i = 0; i < D; ++i)
-                dw[i] += xs[r * D + i] * zb + xo[(1 + i) * T + r];
+                dw[i] += op<BF16>(xs[r * D + i]) * op<BF16>(zb) + op<BF16>(xo[(1 + i) * T + r]);
             }
 #pragma unroll
             for (int i = 0; i < D; ++i) part[net.w_off[0] + i * N + o] += dw[i];
@@ -415,7 +433,8 @@ grads_kernel(const float* __restrict__ x, const float* __restrict__ V,
         // (c) W̄_l[k][o] += Σ_m In[m][k] Z̄[m][o];  b̄_l[o] += Σ_r z̄[r][o]
         {
           float acc[4][4][4];
-          mma_gemm(Z, Y, M, K, N, acc);
+          if constexpr (BF16) mma_gemm_bf16(Z, Y, M, K, N, acc);
+          else mma_gemm(Z, Y, M, K, N, acc);
           for (int o = threadIdx.x; o < N; o += NT) {
             float s = 0.f;
             for (int r = 0; r < T; ++r) s += Y[r * LDS + o];
@@ -461,7 +480,7 @@ int launch_pad(const float* prm, const Net& net, const Pad& pad, int R, float* w
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool BF16>
 int launch(const float* x, const float* V, const float* w, const float* bval,
            int bval_stride, const float* blap, int blap_stride, const float* prm,
            const Net& net, const Phys& ph, const float* scal, int n, int R,
@@ -472,9 +491,9 @@ int launch(const float* x, const float* V, const float* w, const float* bval,
   if (rc) return rc;
   const size_t smem = (size_t)3 * TILE_FLOATS * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      grads_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      grads_kernel<D, BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  grads_kernel<D><<<n_blocks, NT, smem, stream>>>(
+  grads_kernel<D, BF16><<<n_blocks, NT, smem, stream>>>(
       x, V, w, bval, bval_stride, blap, blap_stride, prm, wpad, net, pad, ph, scal,
       n, R, S, scratch, partial);
   err = cudaGetLastError();
@@ -507,7 +526,9 @@ extern "C" int gpe_k2_pad_weights(const float* prm, const int* dims, int n_layer
 // run (min(SM count, tiles)); n_blocks: grid size (≤ SM count); scratch:
 // n_blocks x (n_layers-1) x 128 x 128 floats; partial: R·S x (n_params + 4)
 // floats; out: R rows of n_params gradient floats in the flat layout
-// followed by the run's 4 sums. Returns the CUDA error code of the launches.
+// followed by the run's 4 sums; bf16: 1 for the bf16 operand mode (last, so
+// that a build without it ignores it). Returns the CUDA error code of the
+// launches.
 extern "C" int gpe_k2_grads_runs(const float* x, const float* V, const float* w,
                                  const float* bval, int bval_stride,
                                  const float* blap, int blap_stride,
@@ -515,19 +536,22 @@ extern "C" int gpe_k2_grads_runs(const float* x, const float* V, const float* w,
                                  int n, int act, int nonlin, float p,
                                  float kinetic, const float* scal, int R, int S,
                                  float* wpad, float* scratch, float* partial,
-                                 int n_blocks, float* out, void* stream) {
+                                 int n_blocks, float* out, void* stream, int bf16) {
   using namespace gpe;
   if (R < 1 || S < 1 || n_blocks < 1) return (int)cudaErrorInvalidValue;
   const Net net = make_net(dims, n_layers);
   const Phys ph{act, nonlin, p, kinetic};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define GPE_K2_LAUNCH(D)                                                          \
-  launch<D>(x, V, w, bval, bval_stride, blap, blap_stride, prm, net, ph, scal, n, \
-            R, S, wpad, scratch, partial, n_blocks, out, s)
-  switch (dims[0]) {
-    case 1: return GPE_K2_LAUNCH(1);
-    case 2: return GPE_K2_LAUNCH(2);
-    case 3: return GPE_K2_LAUNCH(3);
+#define GPE_K2_LAUNCH(D, B)                                                          \
+  launch<D, B>(x, V, w, bval, bval_stride, blap, blap_stride, prm, net, ph, scal, n, \
+               R, S, wpad, scratch, partial, n_blocks, out, s)
+  switch (dims[0] * 2 + (bf16 ? 1 : 0)) {
+    case 2: return GPE_K2_LAUNCH(1, false);
+    case 3: return GPE_K2_LAUNCH(1, true);
+    case 4: return GPE_K2_LAUNCH(2, false);
+    case 5: return GPE_K2_LAUNCH(2, true);
+    case 6: return GPE_K2_LAUNCH(3, false);
+    case 7: return GPE_K2_LAUNCH(3, true);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef GPE_K2_LAUNCH

@@ -54,8 +54,8 @@
 //   each run's rows in a fixed order (in double) — deterministic.
 // - Ragged edge: points past n load x = 0 and are masked out of the sums (a
 //   padded point's u(0) ≠ 0 must not contribute).
-// - compute_dtype = bf16 (template flag BF16, single runs; the run mode
-//   stays f32 as in JAX): every GEMM operand is a bf16 value — x and the
+// - compute_dtype = bf16 (template flag BF16, single runs and the run axis,
+//   as JAX's n_runs takes it): every GEMM operand is a bf16 value — x and the
 //   state rounded where they are written (common.cuh `op`), the hidden
 //   weights staged as f32 by the same cp.async and rounded as the GEMM
 //   packs them — and the hidden GEMMs run on bf16 tensor cores
@@ -191,7 +191,7 @@ int launch(const float* x, const float* V, const float* w, const float* bval,
 // n_blocks: min(R·S, SM count), the grid (twice that, at most R·S, for a
 // narrow f32 net: ≤ 2 hidden GEMM layers, hidden widths ≤ 64, two blocks an
 // SM); out: R x 4 sums; bf16: 1 rounds every
-// GEMM operand to bf16 (R = 1 only). Returns the CUDA error code of the
+// GEMM operand to bf16 (any R). Returns the CUDA error code of the
 // launches (0 on success).
 extern "C" int gpe_k1_sums_runs(const float* x, const float* V, const float* w,
                                 const float* bval, int bval_stride,
@@ -202,7 +202,7 @@ extern "C" int gpe_k1_sums_runs(const float* x, const float* V, const float* w,
                                 float* partial, int n_blocks, float* out,
                                 int bf16, void* stream) {
   using namespace gpe;
-  if (R < 1 || S < 1 || n_blocks < 1 || (bf16 && R != 1))
+  if (R < 1 || S < 1 || n_blocks < 1)
     return (int)cudaErrorInvalidValue;
   const Net net = make_net(dims, n_layers);
   const Phys ph{act, nonlin, p, kinetic};

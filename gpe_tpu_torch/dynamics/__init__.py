@@ -1,7 +1,9 @@
 """TDGPE propagators, port of `gpe_tpu/dynamics/`: the split-step spectral
-engine on torch.fft and the GEMM engine (dense per-axis propagators).
-`rotating_step.py` and `sharded.py` are not ported yet."""
+engine on torch.fft, the GEMM engine (dense per-axis propagators) and the
+rotating frame's Bao–Wang ADI split step. `sharded.py` is not ported yet."""
 from gpe_tpu_torch.dynamics.gemm_step import (evolve_gemm,  # noqa: F401
                                               ground_state_gemm)
+from gpe_tpu_torch.dynamics.rotating_step import (evolve_rotating,  # noqa: F401
+                                                  rotating_ground_state)
 from gpe_tpu_torch.dynamics.split_step import (axis_coords, evolve,  # noqa: F401
                                                ground_state)

@@ -1,0 +1,161 @@
+"""Rotating-frame vortex experiment, port of
+`gpe_tpu/experiments/gpe2d_vortex.py` — BASELINE config #5: the 2D GPE with
+the ΩL_z term, complex ψ, vortex states by distillation and an LM polish
+(`rotating/problem.py:train_rotating_vortex`), one row per Ω.
+
+At Ω = 0.9 (γ = 50) the ground state is multi-stable, so that row distils
+the lowest-energy configuration of the committed grid-refined oracle cache
+(`runs/gpe2d_vortex/config_oracle_cache.npz` and
+`config_oracle_table.json`, read only; `--no-config-cache` rebuilds the
+oracle at --n).
+
+Rows merge into an existing `<out>/summary.json`: a fresh row replaces only
+a row of the same settings (every setting that changes a row: Ω, γ, n,
+width, activation, init, w0, the schedule, the oracle source and the
+seed), so a targeted re-run keeps every other row. (The JAX driver keys the merge on γ
+alone: it drops every row of another γ and overwrites a row of another
+width or schedule at the same Ω.)
+
+    python -m gpe_tpu_torch.experiments.gpe2d_vortex [--omegas 0.0 0.7 0.9] [--cpu]
+    CPU smoke: ... --cpu --n 24 --width 24 --omegas 0.7 --fit-epochs 30 \
+               --lbfgs-steps 3 --polish-steps 2 --cg-iters 5 --sobolev-n 20 \
+               --oracle-steps 400
+
+`--seed` seeds the net's initial draw (`train_rotating_vortex`'s CPU
+generator, 0 by default); another seed is a second witness of a row.
+
+Writes `<out>/summary.json` (the JAX run's keys; each row adds `settings`
+and `polish`, the LM polish's verdict with μ, pde, ⟨L_z⟩ and E before and
+after it) and `<out>/params_omega<Ω>.pkl`; `--out` defaults to
+`runs_torch/gpe2d_vortex`. On the CUDA card unless `--cpu`. No plot (`viz/`
+is not ported).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[2]
+ORACLE_DIR = REPO / "runs" / "gpe2d_vortex"
+
+
+def merge_rows(prev: list, fresh: list) -> list:
+    """prev's rows whose `settings` no fresh row has, then the fresh rows,
+    sorted by (Ω, γ)."""
+    keys = {json.dumps(r["settings"], sort_keys=True) for r in fresh}
+    kept = [r for r in prev
+            if json.dumps(r.get("settings"), sort_keys=True) not in keys]
+    return sorted(kept + fresh, key=lambda r: (r["omega"], r["settings"]["gamma"]))
+
+
+def cached_target(n: int, lb: float, ub: float, device):
+    """(ψ regridded to the n² grid, μ*, L_z*) of the lowest-energy
+    configuration in the committed oracle cache, and its source record;
+    None when the cache is absent."""
+    import numpy as np
+
+    from gpe_tpu_torch.validate.rotating import regrid_psi
+
+    cache_path = ORACLE_DIR / "config_oracle_cache.npz"
+    table_path = ORACLE_DIR / "config_oracle_table.json"
+    if not (cache_path.exists() and table_path.exists()):
+        return None, None
+    table = json.loads(table_path.read_text())
+    cache = np.load(cache_path)
+    name = min(table, key=lambda k: table[k]["E_star"])
+    psi_o = cache[f"{name}_psi_re"] + 1j * cache[f"{name}_psi_im"]
+    target = (regrid_psi(psi_o, cache[f"{name}_x"], np.linspace(lb, ub, n), device=device),
+              float(cache[f"{name}_mu"]), float(cache[f"{name}_lz"]))
+    return target, {"config": name, "oracle_n": int(cache[f"{name}_x"].shape[0]),
+                    "mu_star": target[1], "E_star": table[name]["E_star"]}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--n", type=int, default=128)
+    ap.add_argument("--gamma", type=float, default=50.0)
+    ap.add_argument("--omegas", type=float, nargs="*", default=[0.0, 0.7, 0.9])
+    ap.add_argument("--width", type=int, default=128)
+    ap.add_argument("--fit-epochs", type=int, default=12000)
+    ap.add_argument("--lbfgs-steps", type=int, default=800)
+    ap.add_argument("--polish-steps", type=int, default=240)
+    ap.add_argument("--cg-iters", type=int, default=100)
+    ap.add_argument("--activation", default="sin")
+    ap.add_argument("--init-scheme", default="siren")
+    ap.add_argument("--w0", type=float, default=3.0)
+    ap.add_argument("--no-sobolev", action="store_true")
+    ap.add_argument("--sobolev-n", type=int, default=128)
+    ap.add_argument("--oracle-steps", type=int, default=40000)
+    ap.add_argument("--no-config-cache", action="store_true",
+                    help="ignore the oracle cache and rebuild the Ω = 0.9 oracle at --n")
+    ap.add_argument("--seed", type=int, default=0, help="the net's initial draw")
+    ap.add_argument("--out", default="runs_torch/gpe2d_vortex")
+    ap.add_argument("--cpu", action="store_true", help="run on the CPU")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from gpe_tpu_torch.device import resolve_device
+    from gpe_tpu_torch.io import save_params
+    from gpe_tpu_torch.rotating import RotatingSpec, train_rotating_vortex
+
+    dev = resolve_device("cpu" if args.cpu else None)
+    os.makedirs(args.out, exist_ok=True)
+    results = []
+    t0 = time.time()
+    for omega in args.omegas:
+        spec = RotatingSpec(n_points=args.n, layers=(2, args.width, args.width, args.width, 2),
+                            activation=args.activation, init_scheme=args.init_scheme,
+                            w0=args.w0, gamma=args.gamma, omega=omega)
+        target, target_src = None, None
+        if not args.no_config_cache and omega == 0.9 and args.gamma == 50.0:
+            target, target_src = cached_target(args.n, spec.lb, spec.ub, dev)
+            if target is not None:
+                print(f"omega=0.9: distilling from cached {target_src['config']} oracle "
+                      f"(n={target_src['oracle_n']}, mu*={target[1]:.6f})", flush=True)
+        t1 = time.time()
+        res = train_rotating_vortex(spec, fit_epochs=args.fit_epochs,
+                                    lbfgs_steps=args.lbfgs_steps,
+                                    polish_steps=args.polish_steps,
+                                    polish_cg_iters=args.cg_iters, target=target,
+                                    oracle_steps=args.oracle_steps,
+                                    sobolev=not args.no_sobolev, sobolev_n=args.sobolev_n,
+                                    seed=args.seed, verbose=True, device=dev)
+        settings = {"omega": omega, "gamma": args.gamma, "n": args.n, "width": args.width,
+                    "activation": args.activation, "init_scheme": args.init_scheme,
+                    "w0": args.w0, "fit_epochs": args.fit_epochs,
+                    "lbfgs_steps": args.lbfgs_steps, "polish_steps": args.polish_steps,
+                    "cg_iters": args.cg_iters, "sobolev": not args.no_sobolev,
+                    "sobolev_n": args.sobolev_n, "oracle_steps": args.oracle_steps,
+                    "oracle": target_src["config"] if target_src else "fresh",
+                    "seed": args.seed}
+        row = {"omega": omega, "mu_net": res.mu, "mu_grid": res.mu_grid,
+               "abs_err": abs(res.mu - res.mu_grid), "lz_net": res.lz,
+               "lz_grid": res.lz_grid, "n_vortices": res.n_vortices,
+               "pde_loss": res.pde_loss, "fit_mse": res.fit_mse, "energy": res.energy,
+               "polish": res.polish,
+               "wall_s": round(time.time() - t1, 1), "settings": settings}
+        if target_src is not None:
+            row["oracle_source"] = target_src
+        results.append(row)
+        print(json.dumps(row), flush=True)
+        save_params(os.path.join(args.out, f"params_omega{omega:g}.pkl"), res.params)
+
+    sum_path = os.path.join(args.out, "summary.json")
+    if os.path.exists(sum_path):
+        with open(sum_path) as f:
+            results = merge_rows(json.load(f).get("results", []), results)
+    summary = {"config": "BASELINE#5 rotating-frame vortex states", "gamma": args.gamma,
+               "results": results, "total_wall_s": round(time.time() - t0, 1),
+               "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"}
+    with open(sum_path, "w") as f:
+        json.dump(summary, f, indent=2)
+    print(json.dumps({"summary": "written", "wall_s": summary["total_wall_s"]}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

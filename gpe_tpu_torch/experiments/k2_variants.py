@@ -72,7 +72,8 @@ PATCHES = {
              "          __syncthreads();\n          mma_store(X, acc);",
          "          float acc[8][8];\n          gemm_tile(Z, X, N, acc);\n"
          "          __syncthreads();\n          store_tile(X, acc);"),
-        (K2, "          float acc[4][4][4];\n          mma_gemm(Z, Y, M, K, N, acc);",
+        (K2, "          float acc[4][4][4];\n          if constexpr (BF16) mma_gemm_bf16(Z, Y, M, "
+             "K, N, acc);\n          else mma_gemm(Z, Y, M, K, N, acc);",
          "          float acc[8][8];\n          gemm_tile(Z, Y, M, acc);"),
         (K2, "          mma_store(Y, acc);", "          store_tile(Y, acc);"),
     ],
@@ -91,7 +92,7 @@ PATCHES = {
          "for (int mt = 0; mt < MT; ++mt) " + GUARD + "mma_tf32(", 3),
     ],
     "frag_epilogue": [
-        (K2, "template <int D>\n__global__ void __launch_bounds__(NT, 1)",
+        (K2, "template <int D, bool BF16>\n__global__ void __launch_bounds__(NT, 1)",
          "__device__ __forceinline__ void mma_add(float* dst, const float acc[4][4][4],\n"
          "                                        int K, int N) {\n"
          "  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;\n"
@@ -105,7 +106,7 @@ PATCHES = {
          "        if (j + 1 < N) dst[i * N + j + 1] += acc[mt][nt][2 * h + 1];\n"
          "      }\n"
          "}\n\n"
-         "template <int D>\n__global__ void __launch_bounds__(NT, 1)"),
+         "template <int D, bool BF16>\n__global__ void __launch_bounds__(NT, 1)"),
         (K2, "          mma_store(Y, acc);\n          __syncthreads();\n"
              "          add_tile(part + net.w_off[l], Y, K, N);",
          "          mma_add(part + net.w_off[l], acc, K, N);"),

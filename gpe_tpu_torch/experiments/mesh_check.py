@@ -53,16 +53,16 @@ def _ens(mesh):
 
 
 def _fused_vag(spec, device, relaxed=None, n_shards: int = 1,
-               refresh_every: int = 0, exact_until: int = 0):
+               refresh_every: int = 0, exact_until: int = 0, bf16: bool = False):
     """The spec's fused gradient: `make_fused_value_and_grad` on the card;
-    on the CPU, which that declines, the same vag built directly (the
-    kernels' plain versions), with the relaxed settings it would resolve.
-    refresh_every / exact_until > 0 turn on the relaxed step's exact K1
-    correctors."""
+    on the CPU, which that declines, and in the bf16 operand mode (bf16),
+    the same vag built directly (on the CPU the kernels' plain versions),
+    with the relaxed settings it would resolve. refresh_every /
+    exact_until > 0 turn on the relaxed step's exact K1 correctors."""
     from gpe_tpu_torch.kernels import fused_grad
     from gpe_tpu_torch.train.problem import _resolve_relaxed, make_fused_value_and_grad
 
-    if device.type == "cuda":
+    if device.type == "cuda" and not bf16:
         return make_fused_value_and_grad(spec, device=device, relaxed=relaxed,
                                          n_shards=n_shards, refresh_every=refresh_every,
                                          exact_until=exact_until)
@@ -71,7 +71,7 @@ def _fused_vag(spec, device, relaxed=None, n_shards: int = 1,
         spec.layers, spec.activation, spec.p, spec.kinetic, spec.nonlinearity,
         bc_weight=spec.bc_weight, norm_weight=spec.norm_weight, delayed=relaxed,
         fresh_values=fresh, extrapolate=extrap, refresh_every=refresh_every,
-        exact_until=exact_until)
+        exact_until=exact_until, compute_dtype=torch.bfloat16 if bf16 else torch.float32)
 
 
 def _sync(device):
@@ -108,19 +108,20 @@ def walk(vag, params, batch, gamma, scale, steps: int = 1, lr: float = 1e-3) -> 
 
 
 def case_vag(mesh, spec, params, gamma, scale, relaxed=False, steps: int = 1,
-             refresh_every: int = 0, exact_until: int = 0, lr: float = 1e-3):
+             refresh_every: int = 0, exact_until: int = 0, lr: float = 1e-3,
+             bf16: bool = False):
     """`walk` of the psum-aware fused vag on this rank's shard
     (`make_parallel_vag`): exact (relaxed False), or relaxed (True, or None
     for the default with fresh values and extrapolation), with its exact
-    K1 correctors where refresh_every / exact_until > 0 (`_fused_vag`);
-    the params walked with step `lr`."""
+    K1 correctors where refresh_every / exact_until > 0 (`_fused_vag`),
+    in the bf16 operand mode with bf16; the params walked with step `lr`."""
     from gpe_tpu_torch.kernels._common import LaunchCounter
     from gpe_tpu_torch.parallel.mesh import make_parallel_vag, shard_batch
 
     batch = _batch(spec, mesh)
     svag = make_parallel_vag(_fused_vag(spec, mesh.device, relaxed,
                                         refresh_every=refresh_every,
-                                        exact_until=exact_until), mesh, batch)
+                                        exact_until=exact_until, bf16=bf16), mesh, batch)
     counter = LaunchCounter()
     res = walk(svag, _params(params, mesh), shard_batch(batch, mesh), gamma, scale,
                steps, lr)

@@ -25,6 +25,20 @@ Around it, as in the JAX package:
 The boundary term (a few hundred points) is differentiated by autograd.
 `runs=True` builds the run mode (n_runs > 1 in the JAX package).
 
+`compute_dtype=torch.bfloat16` is the port of the JAX kernel's bf16 mode
+(`make_pallas_value_and_grad(compute_dtype=bf16)`), which is not K1's: the
+JAX kernel casts the ACTIVATION operands of its products to bf16 and keeps
+the weights f32 (bf16 × f32 promotes to an f32 product). Forward: x, the
+value, Jacobian and Laplacian channels are rounded before each layer's
+product with the f32 weights — the relaxed step's sums come from this
+forward, so they are not K1-bf16's (which rounds the weights too); the
+exact step and `init_state` take K1-bf16's sums, as JAX's pass 1 does.
+Reverse: W̄ = bf16(In)ᵀ·bf16(Z̄) with f32 accumulation, and the backprop
+bf16(Z̄)·Wᵀ with W f32; b̄ sums the unrounded Z̄. Autograd passes a
+cotangent through `.to(bfloat16)` unrounded, so it cannot express this
+reverse: the plain version (`collocation_grads_bf16_plain`) is the reverse
+written out step by step, rounding where the JAX kernel casts.
+
 The psum-aware mode (JAX's `axis_name=`): under `group=` the batch's
 collocation arrays are this rank's shard. The kernels run on it; the four
 sums are summed over the ranks before the cotangents (with the global
@@ -47,12 +61,15 @@ from gpe_tpu_torch.kernels._common import (ACT_CODES, MAXW, NONLIN_CODES,
                                            kernel_supports, launch_geometry,
                                            pack_params, ptr, run_scalars,
                                            scale_rows, unpack_flat)
-from gpe_tpu_torch.kernels.fused_residual import (collocation_sums,
+from gpe_tpu_torch.kernels.fused_residual import (_bf16, _per_run, _row,
+                                                  check_compute_dtype,
+                                                  collocation_sums,
                                                   collocation_sums_plain,
                                                   collocation_sums_runs,
                                                   collocation_sums_runs_plain,
                                                   sums_to_loss)
-from gpe_tpu_torch.models.mlp import mlp_apply
+from gpe_tpu_torch.models.mlp import mlp_apply, run_slice
+from gpe_tpu_torch.ops.laplacian import ACTIVATION_QUADS
 from gpe_tpu_torch.ops.collectives import global_count, psum, psum_tree
 
 
@@ -95,10 +112,86 @@ def collocation_grads_runs_plain(params, x, V, w, gamma, scale, cots,
                             activation, p, kinetic, nonlinearity), cots)
 
 
+def collocation_grads_bf16_plain(params, x, V, w, gamma, scale, cots,
+                                 base_val=None, base_lap=None,
+                                 activation: str = "tanh", p: float = 3.0,
+                                 kinetic: float = 1.0,
+                                 nonlinearity: str = "abs_power"):
+    """Plain PyTorch K2 in the bf16 operand mode: (grads, S), the reverse
+    of `gpe_tpu/pallas/fused_grad.py`'s kernel written out, each operand
+    rounded to bf16 where the JAX kernel casts it. The state of a layer is
+    (N, d+2, width): the value, the d Jacobian rows, the Laplacian."""
+    quad = ACTIVATION_QUADS[activation]
+    N, d = x.shape
+    s = torch.cat([x[:, None, :], torch.eye(d, dtype=x.dtype, device=x.device)
+                   .expand(N, d, d), x.new_zeros(N, 1, d)], dim=1)
+    ins, saved = [], []
+    L = len(params)
+    for li, (W, b) in enumerate(params):
+        ins.append(s)
+        zz = torch.matmul(_bf16(s), W)                      # bf16(In) · f32 W
+        z, jz, lz = zz[:, 0] + b, zz[:, 1:1 + d], zz[:, 1 + d]
+        if li < L - 1:
+            s0, s1, s2, s3 = quad(z)
+            g2 = torch.sum(jz * jz, dim=1)
+            saved.append((jz, lz, s1, s2, s3, g2))
+            s = torch.cat([s0[:, None], s1[:, None] * jz, (s1 * lz + s2 * g2)[:, None]],
+                          dim=1)
+    v, lp = z[:, 0], lz[:, 0]
+    u = scale * v if base_val is None else base_val + scale * v
+    lap = scale * lp if base_lap is None else base_lap + scale * lp
+    au = torch.abs(u)
+    if nonlinearity == "power":
+        nl, dnl = gamma * u ** p, gamma * p * u ** (p - 1.0)
+    else:
+        nl, dnl = gamma * au ** (p - 1.0) * u, gamma * p * au ** (p - 1.0)
+    hu = -kinetic * lap + V * u + nl
+    sums = torch.stack([torch.sum(hu * hu), torch.sum(u * hu), torch.sum(u * u),
+                        torch.sum(u * u * w)])
+    c0, c1, c2, c3 = cots.unbind(-1)
+    hu_bar = 2.0 * c0 * hu + c1 * u
+    u_bar = c1 * hu + 2.0 * c2 * u + 2.0 * c3 * w * u + hu_bar * (V + dnl)
+    zero = torch.zeros_like(u_bar)
+    zb = torch.stack([scale * u_bar] + [zero] * d + [scale * (-kinetic * hu_bar)],
+                     dim=1)[:, :, None]
+    grads = [None] * L
+    for li in range(L - 1, -1, -1):
+        grads[li] = (torch.einsum("nck,nco->ko", _bf16(ins[li]), _bf16(zb)),
+                     torch.sum(zb[:, 0], dim=0))
+        if li == 0:
+            break
+        ob = torch.matmul(_bf16(zb), params[li][0].transpose(0, 1))   # bf16(Z̄)·Wᵀ
+        vb, jb, lb = ob[:, 0], ob[:, 1:1 + d], ob[:, 1 + d]
+        jz, lz, s1, s2, s3, g2 = saved[li - 1]
+        jj = torch.sum(jz * jb, dim=1)
+        zb = torch.cat([(s1 * vb + s2 * jj + (s2 * lz + s3 * g2) * lb)[:, None],
+                        s1[:, None] * jb + 2.0 * (s2 * lb)[:, None] * jz,
+                        (s1 * lb)[:, None]], dim=1)
+    return tuple(grads), sums
+
+
+def collocation_grads_runs_bf16_plain(params, x, V, w, gamma, scale, cots,
+                                      base_val=None, base_lap=None,
+                                      activation: str = "tanh", p: float = 3.0,
+                                      kinetic: float = 1.0,
+                                      nonlinearity: str = "abs_power"):
+    """The bf16 plain K2 of each run of run-stacked params: (run-stacked
+    grads, (R, 4) S)."""
+    R = params[0][0].shape[0]
+    gs, ss = _per_run(gamma, R), _per_run(scale, R)
+    outs = [collocation_grads_bf16_plain(
+        run_slice(params, r), x, V, w, gs[r], ss[r], cots[r], _row(base_val, r),
+        _row(base_lap, r), activation, p, kinetic, nonlinearity) for r in range(R)]
+    grads = tuple((torch.stack([o[0][li][0] for o in outs]),
+                   torch.stack([o[0][li][1] for o in outs]))
+                  for li in range(len(params)))
+    return grads, torch.stack([o[1] for o in outs])
+
+
 def _bind(lib):
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.gpe_k2_grads_runs.argtypes = [P, P, P, P, I, P, I, P, ctypes.POINTER(I),
-                                      I, I, I, I, F, F, P, I, I, P, P, P, I, P, P]
+                                      I, I, I, I, F, F, P, I, I, P, P, P, I, P, P, I]
     lib.gpe_k2_grads_runs.restype = I
     lib.gpe_k2_pad_weights.argtypes = [P, ctypes.POINTER(I), I, I, P, P]
     lib.gpe_k2_pad_weights.restype = I
@@ -141,10 +234,10 @@ def padded_weights(params, n_runs: int | None = None) -> torch.Tensor:
 
 
 def _launch(params, x, V, w, scal, base_val, base_lap, activation, p, kinetic,
-            nonlinearity, n_runs):
+            nonlinearity, n_runs, bf16=False):
     """One launch of csrc/fused_grad.cu for n_runs run-stacked nets (None:
-    one net); returns (R, n_params + 4): each run's flat gradient, then its
-    4 sums, and the widths."""
+    one net; bf16: the bf16 operand mode); returns (R, n_params + 4): each
+    run's flat gradient, then its 4 sums, and the widths."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     n, layers = check_inputs(params, x, V, w, base_val, base_lap, n_runs)
@@ -168,51 +261,66 @@ def _launch(params, x, V, w, scal, base_val, base_lap, activation, p, kinetic,
         ptr(base_lap), base_stride(base_lap), ptr(prm), dims_array(layers),
         len(layers) - 1, n, ACT_CODES[activation], NONLIN_CODES[nonlinearity],
         float(p), float(kinetic), ptr(scal), R, S, ptr(wpad), ptr(scratch),
-        ptr(partial), G, ptr(out), stream)
+        ptr(partial), G, ptr(out), stream, int(bf16))
     _build.check(lib, rc, "gpe_k2_grads_runs")
     return out, layers
 
 
 def collocation_grads(params, x, V, w, gamma, scale, cots, base_val=None,
                       base_lap=None, activation: str = "tanh", p: float = 3.0,
-                      kinetic: float = 1.0, nonlinearity: str = "abs_power"):
+                      kinetic: float = 1.0, nonlinearity: str = "abs_power",
+                      compute_dtype=torch.float32):
     """(grads as ((W̄, b̄), ...), S) — the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors. cots: the (4,) cotangents c = ∂L/∂S."""
+    plain version for CPU tensors. cots: the (4,) cotangents c = ∂L/∂S.
+    Launches count in `.launches` (f32) and `.bf16_launches`."""
+    bf16 = check_compute_dtype(compute_dtype)
     if x.device.type == "cpu":
-        return collocation_grads_plain(params, x, V, w, gamma, scale, cots,
-                                       base_val, base_lap, activation, p,
-                                       kinetic, nonlinearity)
+        plain = collocation_grads_bf16_plain if bf16 else collocation_grads_plain
+        return plain(params, x, V, w, gamma, scale, cots, base_val, base_lap,
+                     activation, p, kinetic, nonlinearity)
     scal = run_scalars(x.device, 1, gamma, scale, *cots.unbind(-1))
     out, layers = _launch(params, x, V, w, scal, base_val, base_lap, activation,
-                          p, kinetic, nonlinearity, None)
-    collocation_grads.launches += 1
+                          p, kinetic, nonlinearity, None, bf16)
+    if bf16:
+        collocation_grads.bf16_launches += 1
+    else:
+        collocation_grads.launches += 1
     return unpack_flat(out[0, :-4], layers), out[0, -4:]
 
 
 collocation_grads.launches = 0
+collocation_grads.bf16_launches = 0
 
 
 def collocation_grads_runs(params, x, V, w, gamma, scale, cots, base_val=None,
                            base_lap=None, activation: str = "tanh",
                            p: float = 3.0, kinetic: float = 1.0,
-                           nonlinearity: str = "abs_power"):
+                           nonlinearity: str = "abs_power",
+                           compute_dtype=torch.float32):
     """(run-stacked grads, (R, 4) S) of R run-stacked nets in one launch —
     the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
     cots: (R, 4) per-run cotangents; γ, scale and bases as in
-    `collocation_sums_runs`."""
+    `collocation_sums_runs`. Launches count in `.launches` (f32) and
+    `.bf16_launches`."""
+    bf16 = check_compute_dtype(compute_dtype)
     if x.device.type == "cpu":
-        return collocation_grads_runs_plain(params, x, V, w, gamma, scale, cots,
-                                            base_val, base_lap, activation, p,
-                                            kinetic, nonlinearity)
+        plain = (collocation_grads_runs_bf16_plain if bf16
+                 else collocation_grads_runs_plain)
+        return plain(params, x, V, w, gamma, scale, cots, base_val, base_lap,
+                     activation, p, kinetic, nonlinearity)
     R = params[0][0].shape[0]
     scal = run_scalars(x.device, R, gamma, scale, *cots.unbind(-1))
     out, layers = _launch(params, x, V, w, scal, base_val, base_lap, activation,
-                          p, kinetic, nonlinearity, R)
-    collocation_grads_runs.launches += 1
+                          p, kinetic, nonlinearity, R, bf16)
+    if bf16:
+        collocation_grads_runs.bf16_launches += 1
+    else:
+        collocation_grads_runs.launches += 1
     return unpack_flat(out[:, :-4], layers), out[:, -4:]
 
 
 collocation_grads_runs.launches = 0
+collocation_grads_runs.bf16_launches = 0
 
 
 def make_value_and_grad(layers, activation: str = "tanh", p: float = 3.0,
@@ -220,7 +328,8 @@ def make_value_and_grad(layers, activation: str = "tanh", p: float = 3.0,
                         bc_weight: float = 10.0, norm_weight: float = 20.0,
                         delayed: bool = False, refresh_every: int = 0,
                         extrapolate: bool = False, exact_until: int = 0,
-                        fresh_values: bool = False, runs: bool = False):
+                        fresh_values: bool = False, runs: bool = False,
+                        compute_dtype=torch.float32):
     """vag(params, batch, gamma, scale) -> ((total, aux), grads), the
     contract of autograd over make_loss_fn for a plain or perturbation
     ansatz; with delayed=True the stateful relaxed form
@@ -245,11 +354,16 @@ def make_value_and_grad(layers, activation: str = "tanh", p: float = 3.0,
     Every form takes `group=` (a process group; JAX's `axis_name`) and is
     marked `psum_aware`: the psum-aware mode of the module docstring, which
     `fit(mesh=)` runs through `parallel.mesh.make_parallel_vag`; the
-    relaxed state then holds the global sums, the same on every rank."""
+    relaxed state then holds the global sums, the same on every rank.
+
+    compute_dtype=torch.bfloat16 is the bf16 operand mode of the module
+    docstring, in every form: K1-bf16 sums (exact step, `init_state`, the
+    correctors' refreshes) and K2-bf16 gradients."""
     if layers[-1] != 1:
         raise ValueError("scalar-output nets only")
+    check_compute_dtype(compute_dtype)
     kw = dict(activation=activation, p=p, kinetic=kinetic,
-              nonlinearity=nonlinearity)
+              nonlinearity=nonlinearity, compute_dtype=compute_dtype)
     sums_fn = collocation_sums_runs if runs else collocation_sums
     grads_fn = collocation_grads_runs if runs else collocation_grads
 
@@ -301,7 +415,7 @@ def make_value_and_grad(layers, activation: str = "tanh", p: float = 3.0,
             fn.run_axis = make_value_and_grad(
                 layers, activation, p, kinetic, nonlinearity, bc_weight,
                 norm_weight, delayed, refresh_every, extrapolate, exact_until,
-                fresh_values, runs=True)
+                fresh_values, runs=True, compute_dtype=compute_dtype)
         return fn
 
     if not delayed:

@@ -16,12 +16,14 @@ block-diagonally into one 128-lane net (`gpe_tpu/pallas/packing.py`); the
 port keeps the runs apart on a run axis of the launch, and
 `kernels/packing.py` converts between the two layouts.
 
-`compute_dtype=torch.bfloat16` (single runs only, as in JAX) is the port of
+`compute_dtype=torch.bfloat16` is the port of
 `make_pallas_loss_eval(compute_dtype=bf16)`: every GEMM operand (weights,
 channel state, layer 0's x) is rounded to bf16, round-to-nearest-even,
 before its product; products and sums stay f32, as do biases, activations,
 the Hamiltonian and the reductions. Its plain version rounds the same
-operands with `.to(torch.bfloat16).float()` (`fwdlap_mlp_bf16`).
+operands with `.to(torch.bfloat16).float()` (`fwdlap_mlp_bf16`). The run
+mode takes it too (K2's bf16 run-mode vag starts from these sums); the
+eval entry `make_loss_eval` keeps its run mode f32.
 """
 from __future__ import annotations
 
@@ -109,7 +111,8 @@ def _per_run(v, n_runs: int) -> list:
 def collocation_sums_runs_plain(params, x, V, w, gamma, scale, base_val=None,
                                 base_lap=None, activation: str = "tanh",
                                 p: float = 3.0, kinetic: float = 1.0,
-                                nonlinearity: str = "abs_power") -> torch.Tensor:
+                                nonlinearity: str = "abs_power",
+                                compute_dtype=torch.float32) -> torch.Tensor:
     """Plain PyTorch K1 run mode: the plain K1 of each run, as (R, 4) —
     the definition of R independent runs."""
     R = params[0][0].shape[0]
@@ -117,7 +120,7 @@ def collocation_sums_runs_plain(params, x, V, w, gamma, scale, base_val=None,
     return torch.stack([
         collocation_sums_plain(run_slice(params, r), x, V, w, gs[r], ss[r],
                                _row(base_val, r), _row(base_lap, r), activation,
-                               p, kinetic, nonlinearity)
+                               p, kinetic, nonlinearity, compute_dtype)
         for r in range(R)])
 
 
@@ -185,22 +188,29 @@ collocation_sums.bf16_launches = 0
 def collocation_sums_runs(params, x, V, w, gamma, scale, base_val=None,
                           base_lap=None, activation: str = "tanh",
                           p: float = 3.0, kinetic: float = 1.0,
-                          nonlinearity: str = "abs_power") -> torch.Tensor:
+                          nonlinearity: str = "abs_power",
+                          compute_dtype=torch.float32) -> torch.Tensor:
     """(R, 4) sums of R run-stacked nets in one launch: the CUDA kernel for
     CUDA tensors, the plain version for CPU tensors. γ and scale: numbers,
-    0-d or (R,) tensors; base_val/base_lap: None, (n,) shared or (R, n)."""
+    0-d or (R,) tensors; base_val/base_lap: None, (n,) shared or (R, n).
+    Launches count in `.launches` (f32) and `.bf16_launches`."""
+    bf16 = check_compute_dtype(compute_dtype)
     if x.device.type == "cpu":
         return collocation_sums_runs_plain(params, x, V, w, gamma, scale,
                                            base_val, base_lap, activation, p,
-                                           kinetic, nonlinearity)
+                                           kinetic, nonlinearity, compute_dtype)
     R = params[0][0].shape[0]
     out = _launch(params, x, V, w, run_scalars(x.device, R, gamma, scale),
-                  base_val, base_lap, activation, p, kinetic, nonlinearity, R)
-    collocation_sums_runs.launches += 1
+                  base_val, base_lap, activation, p, kinetic, nonlinearity, R, bf16)
+    if bf16:
+        collocation_sums_runs.bf16_launches += 1
+    else:
+        collocation_sums_runs.launches += 1
     return out
 
 
 collocation_sums_runs.launches = 0
+collocation_sums_runs.bf16_launches = 0
 
 
 def sums_to_loss(sums: torch.Tensor, n: int, norm_weight: float):

@@ -114,3 +114,37 @@ def test_bf16_plain_loss_matches_jax_make_loss_fn_bf16():
         np.testing.assert_allclose(getattr(tnet, field).float().numpy(), want,
                                    rtol=0, atol=atol, err_msg=field)
         assert np.abs(getattr(fnet, field).numpy() - want).max() > atol, field
+
+
+def _scripted_propagator(monkeypatch, times):
+    """An engine that records its step count and a host timer that runs the
+    call and answers times(step count): the timings propagator_ms reads."""
+    seen = []
+
+    def engine(psi, V, dx, dt, k, gamma, **kw):
+        seen.append(k)
+        return psi, {"norm": np.ones(1)}
+
+    def fake_time_ms(fn, iters, device, warmup=2):
+        fn()
+        return times(seen[-1])
+
+    monkeypatch.setattr(bench, "time_ms", fake_time_ms)
+    return engine
+
+
+def test_propagator_ms_doubles_the_steps_until_the_difference_resolves(monkeypatch):
+    # at 40 and 80 steps the 2·S call reads faster than the S call (a loaded
+    # host): the best-of-three difference is negative there; from 160 steps on
+    # the time grows by 0.01 ms a step
+    times = lambda k: {40: 10.0, 80: 9.9}.get(k, 9.0 + 0.01 * k)
+    engine = _scripted_propagator(monkeypatch, times)
+    ms = bench.propagator_ms(engine, torch.device("cpu"), n=8, steps=40)
+    assert ms > 0.0
+    assert ms == pytest.approx((times(160) - times(80)) / 80)
+
+
+def test_propagator_ms_raises_where_the_difference_never_resolves(monkeypatch):
+    engine = _scripted_propagator(monkeypatch, lambda k: 10.0 - 1e-3 * k)
+    with pytest.raises(ValueError, match="does not resolve"):
+        bench.propagator_ms(engine, torch.device("cpu"), n=8, steps=40)

@@ -741,3 +741,73 @@ def test_deeponet_loss_gradient_card_matches_cpu(cuda_device):
     for a, b in zip(out["cuda"][1], out["cpu"][1]):
         s = np.abs(b).max() + 1e-30
         np.testing.assert_allclose(a / s, b / s, rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("layers,n,R", [((2, 128, 128, 128, 1), 4096, None),
+                                        ((2, 100, 100, 100, 1), 3000, None),
+                                        ((1, 48, 40, 1), 777, None),
+                                        ((3, 32, 32, 1), 500, None),
+                                        ((2, 64, 1), 300, None),
+                                        ((2, 64, 64, 64, 64, 1), 600, None),
+                                        ((1, 64, 64, 64, 1), 4000, 3),
+                                        ((2, 100, 36, 1), 1500, 2)])
+def test_k2_bf16_matches_its_plain_version_on_the_card(cuda_device, layers, n, R):
+    """K2 (and, with R, K3 grads and K3 sums) in the bf16 operand mode
+    against the bf16 plain versions: gradients normalised 2e-4, sums rel 1e-4
+    (both round the same operands; a value within f32 round-off of a bf16
+    boundary may round the other way); and apart from the f32 kernel's
+    gradients, but within 5e-2 of them normalised. d = 1..3, ragged n, width
+    100, no, one, two and three hidden GEMM layers (the deep forward), runs
+    with per-run bases and γ."""
+    bf16 = torch.bfloat16
+    params, x, V, w, bval, blap = _inputs(layers, n, cuda_device)
+    phys = ("shifted_tanh", 3.0, 0.5, "abs_power")
+    gamma, scale = 5.0, 0.05
+    cots = torch.tensor([1.0 / n, -4.0 / n, 4.0 / n, 0.3], device=cuda_device)
+    if R is not None:
+        stack = lambda t: torch.stack([t * (1.0 + 0.1 * r) for r in range(R)])
+        params = tuple((stack(W), stack(b)) for W, b in params)
+        bval, blap = stack(bval), stack(blap)
+        gamma = torch.linspace(1.0, 5.0, R, device=cuda_device)
+        scale = torch.full((R,), 0.05, device=cuda_device)
+        cots = torch.stack([cots] * R)
+        sums = k1.collocation_sums_runs(params, x, V, w, gamma, scale, bval, blap, *phys,
+                                        compute_dtype=bf16)
+        psums = k1.collocation_sums_runs_plain(params, x, V, w, gamma, scale, bval, blap,
+                                               *phys, compute_dtype=bf16)
+        np.testing.assert_allclose(sums.cpu().numpy(), psums.cpu().numpy(), rtol=1e-4)
+        run = lambda fn, **kw: fn(params, x, V, w, gamma, scale, cots, bval, blap, *phys,
+                                  **kw)
+        got, s = run(k2.collocation_grads_runs, compute_dtype=bf16)
+        want, ws = run(k2.collocation_grads_runs_bf16_plain)
+        f32, _ = run(k2.collocation_grads_runs)
+        for r in range(R):
+            pick = lambda g: tuple((a[r], b[r]) for a, b in g)
+            _grads_close(pick(got), pick(want))
+            _grads_close(pick(got), pick(f32), atol=5e-2)
+    else:
+        run = lambda fn, **kw: fn(params, x, V, w, gamma, scale, cots, bval, blap, *phys,
+                                  **kw)
+        got, s = run(k2.collocation_grads, compute_dtype=bf16)
+        want, ws = run(k2.collocation_grads_bf16_plain)
+        f32, _ = run(k2.collocation_grads)
+        _grads_close(got, want)
+        _grads_close(got, f32, atol=5e-2)
+        assert not all(torch.equal(a, b) for (a, _), (b, _) in zip(got, f32))
+    np.testing.assert_allclose(s.cpu().numpy(), ws.cpu().numpy(), rtol=1e-4)
+
+
+def test_k2_bf16_keeps_parity_at_weights_x4(cuda_device):
+    """K2-bf16 with weights x4 at the main width against its plain version
+    (normalised 2e-4): the backprop's 3xTF32 products of bf16 cotangents and
+    f32 weights must keep f32 accuracy where saturated activations make the
+    gradient most sensitive."""
+    params, x, V, w, bval, blap = _inputs((2, 128, 128, 128, 1), 4096, cuda_device,
+                                          w_scale=4.0)
+    args = (params, x, V, w, 5.0, 0.05,
+            torch.tensor([2e-4, -8e-4, 8e-4, 0.3], device=cuda_device), bval, blap,
+            "shifted_tanh", 3.0, 0.5, "abs_power")
+    got, s = k2.collocation_grads(*args, compute_dtype=torch.bfloat16)
+    want, ws = k2.collocation_grads_bf16_plain(*args)
+    _grads_close(got, want)
+    np.testing.assert_allclose(s.cpu().numpy(), ws.cpu().numpy(), rtol=1e-4)

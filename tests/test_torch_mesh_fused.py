@@ -83,6 +83,9 @@ CASES = [
     ("corrector", "vag", dict(spec=tprob.GPESpec(**PERT),
                               params=_np_params(VAG["layers"], 5), gamma=3.0, scale=0.05,
                               relaxed=None, steps=4, refresh_every=2, exact_until=2)),
+    ("bf16", "vag", dict(spec=tprob.GPESpec(**PERT), params=_np_params(VAG["layers"], 6),
+                         gamma=3.0, scale=0.05, relaxed=None, steps=3, refresh_every=2,
+                         bf16=True)),
     ("fused_fit", "fit", dict(spec=tprob.GPESpec(**PERT), params=_np_params(VAG["layers"], 3),
                               gamma=1.0, scale=0.05, epochs=60, check_every=30,
                               fused=True, relaxed=False, clip_norm=None)),
@@ -132,6 +135,27 @@ def test_sharded_fused_vag_matches_unsharded_port_vag(ranks):
     np.testing.assert_allclose(r["same/total"][0], float(total), rtol=1e-6)
     _assert_grads_close(r["same/grads"][0], flat(grads), atol=1e-5)
     _bit_equal(ranks, "same", ("total", "mu", "grads"))
+
+
+def test_sharded_bf16_vag_matches_unsharded_bf16_vag(ranks):
+    """K2's bf16 operand mode under `group=` (the default relaxed step with
+    a K1-bf16 refresh at step 2, three steps): the global sums and the
+    gradients of the unsharded bf16 vag (total rtol 1e-6, state 1e-5;
+    gradients normalised 2e-4, the bf16 mode's bound: a shard's products
+    may round a state value near a bf16 boundary the other way, 3.3e-5
+    here); the same state on both ranks."""
+    _, tspec = _specs(PERT)
+    tb = tprob.make_batch(tspec, 0, device="cpu")
+    p = params_from_numpy(_np_params(VAG["layers"], 6), device="cpu")
+    vag = _port_vag(tspec, delayed=True, fresh_values=True, extrapolate=True,
+                    refresh_every=2, compute_dtype=torch.bfloat16)
+    want = walk(vag, p, tb, 3.0, 0.05, steps=3)
+    r = ranks[0]
+    np.testing.assert_allclose(r["bf16/total"], want["total"], rtol=1e-6)
+    np.testing.assert_allclose(r["bf16/state"], want["state"], rtol=1e-5)
+    for got, w in zip(r["bf16/grads"], want["grads"]):
+        _assert_grads_close(got, w, atol=2e-4)
+    _bit_equal(ranks, "bf16", ("total", "mu", "grads", "state"))
 
 
 def test_sharded_relaxed_state_matches_unsharded_over_two_steps(ranks):
