@@ -2630,10 +2630,12 @@ K2_BF16_VS_F32 = 1e-2  # normalised, K2-bf16 against f32 K2: the JAX docstring's
 # 10 relaxed bf16 fit steps, card against CPU, per loss. From
 # `experiments/bf16_fit_controls.py` (NVIDIA H100 80GB HBM3, 700 W): routes
 # that differ from the card's in f32 rounding alone (run again, points
-# reordered, the CPU) part by ≤ 6.7e-5, the planted faults (stale cotangents,
-# the output bias's gradient dropped) by ≥ 1.85e-2; the bound sits at their
-# geometric middle. (The exact bf16 step parts by 4.6e-2–8.6e-2: its
-# cotangents come from K1-bf16's sums, which round the weights too.)
+# reordered, the CPU) part by ≤ 1.0e-4 (≤ 6.7e-5 with the FFMA forward of
+# K2-bf16 before its tensor-core redesign), the planted faults (stale
+# cotangents, the output bias's gradient dropped) by ≥ 1.85e-2; the bound
+# sits between, 10x and 18x from each. (The exact bf16 step parts by
+# 4.6e-2–8.6e-2: its cotangents come from K1-bf16's sums, which round the
+# weights too.)
 FIT_BF16_RTOL = 1e-3
 ROT_F64_ATOL = 1e-12   # the rotating stepper in f64, card against CPU
 

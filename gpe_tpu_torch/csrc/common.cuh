@@ -11,11 +11,11 @@
 // GEMMs. Operands are read from shared memory "contraction-major":
 //     C[i][j] = sum_q A[q*LDS + i] * B[q*LDS + j].
 // gemm_tile runs them on CUDA cores in f32 FFMA, 256 threads each on an
-// 8 x 8 register tile of the 128 x 128 output, float4 operand loads: K2's
-// forward GEMMs. mma_gemm runs them on tensor cores in 3xTF32 (each
+// 8 x 8 register tile of the 128 x 128 output, float4 operand loads: f32
+// K2's forward GEMMs. mma_gemm runs them on tensor cores in 3xTF32 (each
 // operand split in two TF32 terms, three products, ~2^-21 relative per
 // product; one TF32 product keeps ~3 decimal digits, which breaks parity
-// with the f32 reference): K2's reverse GEMMs, K1's f32 forward GEMMs
+// with the f32 reference): f32 K2's reverse GEMMs, K1's f32 forward GEMMs
 // (forward_tile's MMA flag) and K4's f32 GEMMs (64 x 64 warp blocks of its
 // 128 x 256 output), so f32 parity holds at the TF32 rate over three. In
 // the bf16 operand mode (template flag BF16) of K1 and K4 every GEMM operand —
@@ -28,7 +28,12 @@
 // accumulation, one product per term, no split. Biases, activations, the
 // Hamiltonian and the sums stay f32. K2's bf16 mode rounds the activation
 // operands only (forward_tile's RW = false): its weights stay f32, as the
-// JAX kernel's bf16 x f32 products promote (fused_grad.cu).
+// JAX kernel's bf16 x f32 products promote (fused_grad.cu). Its forward and
+// backprop GEMMs run on mma_gemm_bf16x3: the f32 weight split into three
+// bf16 terms that sum to it exactly, each multiplied by the bf16 operand on
+// the same m16n8k16 instruction, so every product is exact in f32 and the
+// result is the f32 product sum up to the order and rounding of its
+// additions (per k16 slab on the tensor core, across slabs by FADD).
 // Weights that a kernel stages more than once come from a copy padded to
 // 128 columns (K4: the host's; K2: its layout kernel's), by cp.async; K1
 // stages a run's weights once per block and run by 4-byte cp.async.
@@ -364,6 +369,99 @@ __device__ __forceinline__ void mma_gemm_bf16(const float* __restrict__ A,
   }
 }
 
+// v0, v1 (f32) as three bf16x2 registers hi, mid, lo (v0 in bits 0–15):
+// hi = bf16(v), mid = bf16(v − hi), lo = bf16(v − hi − mid), each nearest
+// even. Each residual is exact in f32: v − hi has at most 16 significant
+// bits and v − hi − mid at most 8, so lo is exact too and hi + mid + lo = v
+// (for |v| ≥ 2^-110 or so, where lo is still a normal bf16 value).
+__device__ __forceinline__ void split_bf16x3(float v0, float v1, uint32_t& hi,
+                                             uint32_t& mid, uint32_t& lo) {
+  hi = pack_bf16(v0, v1);
+  v0 -= __uint_as_float(hi << 16);
+  v1 -= __uint_as_float(hi & 0xffff0000u);
+  mid = pack_bf16(v0, v1);
+  v0 -= __uint_as_float(mid << 16);
+  v1 -= __uint_as_float(mid & 0xffff0000u);
+  lo = pack_bf16(v0, v1);
+}
+
+// A GEMM of an f32 A by a B whose values are bf16 already, on bf16 tensor
+// cores at f32 accuracy (K2's bf16 mode: the weights times the rounded
+// state in the forward, Wᵀ times the rounded Z̄ in the backprop).
+// mma_gemm_bf16's operand convention, warp layout, fragment map and guards:
+//   C[i][j] = Σ_{q < P} A[q·LDS + i]·B[q·LDB + j]  for i < rows, j < cols.
+// Each k16 slab packs its NTL B tiles once (exact: the values are bf16),
+// then takes the MT A tiles one at a time: splits the tile in registers as
+// it is loaded (split_bf16x3; no shared-memory copy of the terms: K2's three
+// f32 tiles leave no room) and issues lo·b, then mid·b, then hi·b for each
+// n8 tile (the small terms first, as mma_gemm orders its TF32 terms; NTL
+// independent mma.sync between dependent ones) into a slab sum that starts
+// at zero, which one FADD adds into the accumulator. A bf16 x bf16 product
+// is exact in f32, but the tensor core adds its products and its C input
+// with truncation: chained through C over the whole contraction (24 mma.sync
+// at K = 128) that bias shrinks every output by some units of its last
+// place, and the bf16 rounding of the next layer's state turns it into flips
+// that the gradient amplifies (k2_variants.py's mma_chain fails the x4 card
+// test). Per slab the bias is relative to the slab's sum, and the FADD
+// rounds to nearest. A warp whose block lies wholly past rows or cols skips
+// it.
+template <int MT, int NTL = 4, int LDB = LDS>
+__device__ __forceinline__ void mma_gemm_bf16x3(const float* __restrict__ A,
+                                                const float* __restrict__ B, int P,
+                                                int rows, int cols,
+                                                float (&acc)[MT][NTL][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int i0 = 16 * MT * (warp & 1), j0 = 8 * NTL * (warp >> 1);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NTL; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  if (i0 >= rows || j0 >= cols) return;
+  const float* a = A + 2 * t * LDS + i0 + g;
+  const float* b = B + 2 * t * LDB + j0 + g;
+  for (int q0 = 0; q0 < P; q0 += 16) {
+    const int k = q0 + 2 * t;
+    const bool in0 = k < P, in1 = k + 1 < P, in8 = k + 8 < P, in9 = k + 9 < P;
+    const float* aq = a + q0 * LDS;
+    const float* bq = b + q0 * LDB;
+    uint32_t bt[NTL][2];
+#pragma unroll
+    for (int nt = 0; nt < NTL; ++nt) {
+      const float* p = bq + 8 * nt;
+      bt[nt][0] = pack_bf16(in0 ? p[0] : 0.f, in1 ? p[LDB] : 0.f);
+      bt[nt][1] = pack_bf16(in8 ? p[8 * LDB] : 0.f, in9 ? p[9 * LDB] : 0.f);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const float* p = aq + 16 * mt;
+      uint32_t ah[4], am[4], al[4];
+      split_bf16x3(in0 ? p[0] : 0.f, in1 ? p[LDS] : 0.f, ah[0], am[0], al[0]);
+      split_bf16x3(in0 ? p[8] : 0.f, in1 ? p[LDS + 8] : 0.f, ah[1], am[1], al[1]);
+      split_bf16x3(in8 ? p[8 * LDS] : 0.f, in9 ? p[9 * LDS] : 0.f, ah[2], am[2], al[2]);
+      split_bf16x3(in8 ? p[8 * LDS + 8] : 0.f, in9 ? p[9 * LDS + 8] : 0.f, ah[3], am[3],
+                   al[3]);
+      float sl[NTL][4];
+#pragma unroll
+      for (int nt = 0; nt < NTL; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sl[nt][e] = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NTL; ++nt) mma_bf16(sl[nt], al, bt[nt]);
+#pragma unroll
+      for (int nt = 0; nt < NTL; ++nt) mma_bf16(sl[nt], am, bt[nt]);
+#pragma unroll
+      for (int nt = 0; nt < NTL; ++nt) mma_bf16(sl[nt], ah, bt[nt]);
+#pragma unroll
+      for (int nt = 0; nt < NTL; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += sl[nt][e];
+    }
+  }
+}
+
 // dst[i·LD + j] = mma_gemm's (or mma_gemm_bf16's) C: with NTL = 4, the
 // whole 128 x 128 tile for MT = 4, its first 64 rows for MT = 2; K4's
 // 128 x 256 with NTL = 8 (float2 stores)
@@ -383,6 +481,26 @@ __device__ __forceinline__ void mma_store(float* dst, const float (&acc)[MT][NTL
     }
 }
 
+// X[i][j] ← Σ_{q < P} A[q·LDS + i]·X[q·LDS + j] by mma_gemm_bf16x3, i < rows
+// (≤ 64: all 8 warps on 32 x 32 blocks, rows 64.. of X left as they were;
+// else 64 x 32 blocks), j < cols; the barrier between the product and the
+// store lets the output overwrite its operand. K2's bf16 forward and
+// backprop GEMMs.
+__device__ __forceinline__ void gemm_bf16x3_inplace(const float* A, float* X, int P,
+                                                    int rows, int cols) {
+  if (rows <= 64) {
+    float acc[2][4][4];
+    mma_gemm_bf16x3(A, X, P, rows, cols, acc);
+    __syncthreads();
+    mma_store(X, acc);
+  } else {
+    float acc[4][4][4];
+    mma_gemm_bf16x3(A, X, P, rows, cols, acc);
+    __syncthreads();
+    mma_store(X, acc);
+  }
+}
+
 // Forward-Laplacian pass of one tile through every layer but the last.
 // On return X holds the last hidden layer's output state X[unit][m]. With
 // `store` non-null, each hidden layer l's PRE-activation state (z with bias,
@@ -391,7 +509,8 @@ __device__ __forceinline__ void mma_store(float* dst, const float (&acc)[MT][NTL
 // weights are resident, or is loaded here into wbase when `stream` is set.
 // BF16: the state written to X (the next GEMM's operand) and x are
 // rounded, and with RW (round weights, the default) W0 too; K2 calls it
-// with a `store` and RW = false. MMA: the hidden
+// with a `store` and RW = false, and then (MMA unset) its hidden GEMMs run
+// on gemm_bf16x3_inplace, the f32 weights as three bf16 terms. MMA: the hidden
 // GEMMs run on tensor cores, the output cut to the layer's width — in
 // 3xTF32 (mma_gemm), or with BF16 on bf16 tensor cores (mma_gemm_bf16,
 // which rounds the weights as it packs them) — instead of FFMA gemm_tile
@@ -458,6 +577,8 @@ __device__ void forward_tile(float* X, const float* xs, const float* __restrict_
         __syncthreads();
         mma_store(X, acc);
       }
+    } else if constexpr (BF16 && !RW) {  // K2: f32 weights as three bf16 terms
+      gemm_bf16x3_inplace(Wl, X, K, N, C * T);
     } else {
       float acc[8][8];
       gemm_tile(Wl, X, K, acc);          // C[o][m] = sum_k W[k][o] X[k][m]

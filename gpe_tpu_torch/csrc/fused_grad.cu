@@ -19,7 +19,10 @@
 // not to the bit), and the two reverse products, W̄ = Inᵀ·Z̄ and backprop
 // Z̄·Wᵀ, on tensor cores in 3xTF32 (common.cuh mma_gemm). f32-parity
 // products come no faster on this card than the dense TF32 rate over three
-// (495/3 = 165 TFLOP/s): the roof chip_smoke.py holds K2 to.
+// (495/3 = 165 TFLOP/s): the roof chip_smoke.py holds K2 to. The bf16
+// operand mode runs its forward and backprop products on bf16 tensor cores
+// (three bf16 terms of each f32 weight) and W̄ in one bf16 product: 989/3
+// and 989 TFLOP/s (chip_smoke.py's bound_k2_bf16).
 //
 // Design:
 // - Run axis, not lane packing (see fused_residual.cu): work items are
@@ -71,16 +74,22 @@
 // - compute_dtype = bf16 (template flag BF16, single runs and the run axis):
 //   the JAX kernel's `cast` of the activation operands, its weights f32
 //   (fused_grad.py:205-208, 310-312, 332-334). Forward: x and the channel
-//   state are rounded to bf16 as they are staged (common.cuh `op`; W0 and
-//   the hidden weights stay f32, FFMA products), so the sums are those of
-//   bf16 operands times f32 weights. Reverse: Z̄ is rounded before the
-//   backprop GEMM, which stays 3xTF32 (a bf16 value is exact in TF32, so
-//   its split has no low part and each product with an f32 weight keeps
-//   f32 accuracy); W̄ = bf16(In)ᵀ·bf16(Z̄) runs on bf16 tensor cores
-//   (common.cuh mma_gemm_bf16, f32 accumulators), layer 0's and the last
-//   layer's W̄ sums round the same operands; b̄ sums the unrounded Z̄. Bound:
-//   the forward and backprop products at the TF32 rate over two (a bf16 x
-//   f32 product needs the weight's two TF32 terms), W̄ at the bf16 rate.
+//   state are rounded to bf16 as they are staged (common.cuh `op`); layer 0
+//   (K = d) and the last layer keep f32 weights in FFMA, and the hidden GEMMs
+//   run on bf16 tensor cores (common.cuh mma_gemm_bf16x3 through
+//   gemm_bf16x3_inplace): each f32 weight splits, as its mma fragment is
+//   loaded, into hi + mid + lo, three bf16 terms that sum to it exactly, and
+//   each term times the bf16 state is exact in f32 — the sums of bf16
+//   operands times f32 weights, in another order of f32 additions. Reverse:
+//   Z̄ is rounded before the backprop GEMM, which runs on the same routine
+//   (Wᵀ split, the rounded Z̄ packed as is): three m16n8k16 bf16 products
+//   a k16 slab where 3xTF32 took six m16n8k8 ones, two of them on the zero
+//   low part of a bf16 value. W̄ = bf16(In)ᵀ·bf16(Z̄) runs on bf16 tensor
+//   cores (common.cuh mma_gemm_bf16, one product a term) with the f32
+//   epilogue; layer 0's and the last layer's W̄ sums round the same
+//   operands; b̄ sums the unrounded Z̄. Rows cut to the width: at width ≤ 64 all 8 warps take 32 x 32 blocks
+//   of the 64 live rows (the FFMA forward paid for 128). No split is staged
+//   in shared memory: the three f32 tiles leave no room for bf16 planes.
 #include "common.cuh"
 
 namespace gpe {
@@ -177,11 +186,16 @@ __device__ void forward_deep(float* X, const float* xs, const float* __restrict_
     float* Wl = (l & 1) ? Y : Z;
     cp_async_wait_all();
     __syncthreads();
-    float acc[8][8];
-    gemm_tile(Wl, X, K, acc);
-    __syncthreads();
-    if (l + 2 <= L - 2) prefetch_w(padded(wp, pad.f_off[l + 2]), net.dims[l + 2], Wl);
-    store_tile(X, acc);
+    if constexpr (BF16) {
+      gemm_bf16x3_inplace(Wl, X, K, N, C * T);
+      if (l + 2 <= L - 2) prefetch_w(padded(wp, pad.f_off[l + 2]), net.dims[l + 2], Wl);
+    } else {
+      float acc[8][8];
+      gemm_tile(Wl, X, K, acc);
+      __syncthreads();
+      if (l + 2 <= L - 2) prefetch_w(padded(wp, pad.f_off[l + 2]), net.dims[l + 2], Wl);
+      store_tile(X, acc);
+    }
     __syncthreads();
     const float* bl = prm + net.b_off[l];
     float* sl = store + (size_t)l * MAXW * MAXW;
@@ -402,7 +416,9 @@ grads_kernel(const float* __restrict__ x, const float* __restrict__ V,
         cp_async_wait_all();
         __syncthreads();               // Z̄ in X and Y; W_lᵀ staged in Z
         // (d) backprop to layer l-1's output: X[k][m] = Σ_o W[k][o] Z̄[o][m]
-        {
+        if constexpr (BF16) {
+          gemm_bf16x3_inplace(Z, X, N, K, M);
+        } else {
           float acc[4][4][4];
           mma_gemm(Z, X, N, K, M, acc);
           __syncthreads();

@@ -7,7 +7,12 @@ At Ω = 0.9 (γ = 50) the ground state is multi-stable, so that row distils
 the lowest-energy configuration of the committed grid-refined oracle cache
 (`runs/gpe2d_vortex/config_oracle_cache.npz` and
 `config_oracle_table.json`, read only; `--no-config-cache` rebuilds the
-oracle at --n).
+oracle at --n). The JAX artifact's Ω 0.9 row (`runs/gpe2d_vortex/
+summary.json`, abs_err 2.77e-4) is not a run at this script's defaults:
+its every figure is `config_matched.json`'s v7 net, distilled by
+`gpe2d_vortex_config.py` at width 176 on 160² points (15,000 + 1,200
+steps, 900 LM). Hold this script's Ω 0.9 row to that row loosely;
+`gpe2d_vortex_config --stage net` is the like-for-like comparison.
 
 Rows merge into an existing `<out>/summary.json`: a fresh row replaces only
 a row of the same settings (every setting that changes a row: Ω, γ, n,

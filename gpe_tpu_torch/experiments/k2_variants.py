@@ -1,10 +1,12 @@
 """K2's design choices, measured: compile-time variants of
-`csrc/fused_grad.cu` (with `csrc/common.cuh`, which holds its 3xTF32 GEMM
-routine), each the source with a few lines replaced, built
+`csrc/fused_grad.cu` (with `csrc/common.cuh`, which holds its 3xTF32 and
+bf16 GEMM routines), each the source with a few lines replaced, built
 beside the port's libraries (under `build/k2_variants/`, not committed) and
 timed on the card in place of the real kernel.
 
     python -m gpe_tpu_torch.experiments.k2_variants [--clocks] [VARIANT ...]
+    python -m gpe_tpu_torch.experiments.k2_variants --bf16 [--clocks]
+        [--parent <checkout>/gpe_tpu_torch/csrc] [VARIANT ...]
 
 Variants of the kernel as it stands (3xTF32 reverse GEMMs):
 - as_is: the source unchanged;
@@ -31,29 +33,57 @@ from a checkout of it (a `git archive` of that commit):
   values made from the indices;
 - none_of_three: all three.
 
+Variants of the bf16 operand mode (--bf16; K2-bf16 and K3-grads-bf16):
+- as_is: the source unchanged (hidden forward and backprop GEMMs on bf16
+  tensor cores, each f32 weight as three bf16 terms, common.cuh
+  mma_gemm_bf16x3);
+- ffma_forward: the hidden forward GEMMs back on FFMA `gemm_tile`, the
+  bf16 forward before its redesign (the same products, summed in another
+  order);
+- bf16x2: the weight's lo term dropped (hi·b and mid·b only): the error
+  that the third term removes;
+- mma_chain: each slab's products added on the tensor core straight into
+  the accumulator (its C input) instead of into a zeroed slab sum that an
+  FADD adds: the error of the tensor core's truncating adder over the
+  whole contraction;
+- parent (with --parent DIR): the unpatched sources in DIR, a checkout's
+  gpe_tpu_torch/csrc with the same C entry points.
+First, for the port's own build, ptxas's registers and spills and
+cuobjdump's HMMA/FFMA counts of each `grads_kernel<D, BF16>`.
+
 For each variant: K2 at the main shape (gpe2d_ground_state: 50,176
 points, [2,128,128,128,1], γ = 5, s = 0.05) and K3 grads at harmonic_paper
 (six runs of [1,64,64,64,1] on 4,000 points), CUDA events, in turns over
-the variants (forward then reverse order, twice); for the variants that
-compute the gradient, its normalised error against the plain version there
-and with weights x1 and x4 (tests/test_torch_cuda.py's recipe). --clocks
-also builds as_is and fragment_epilogue with clock64 marks after the phase
-barriers and prints cycles per phase (thread 0, mean over blocks). One JSON
-line per variant. Needs a CUDA device.
+the variants (forward then reverse order, twice) two ways: "ms", the
+replays of a CUDA graph of one call (device time), and "call ms",
+back-to-back calls with CUDA events (host work included); for the variants
+that compute the gradient, its normalised error against the plain version
+(--bf16: the bf16 plain version) there and with weights x1 and x4
+(tests/test_torch_cuda.py's recipe), "err64" against the same plain
+version run in float64 (bf16 operands rounded alike), and once the plain
+version's own "plain err64". With --bf16 the same at the benchmark's
+shape (50,176 points, [2,100,100,100,1]), timed too, and on the inputs of
+the card test test_k2_bf16_keeps_parity_at_weights_x4 ("card x4"). --clocks
+also builds as_is and fragment_epilogue (--bf16: as_is and the parent)
+with clock64 marks after the phase barriers and prints cycles per phase
+(thread 0, mean over blocks). One JSON line per variant. Needs a CUDA
+device.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import json
+import re
 import shutil
 import subprocess
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from gpe_tpu_torch.bench import card_info, time_ms
+from gpe_tpu_torch.bench import bench_spec, card_info, graph_ms, time_ms
 from gpe_tpu_torch.device import pin_full_f32
 from gpe_tpu_torch.experiments.configs import EXPERIMENTS
 from gpe_tpu_torch.kernels import _build
@@ -149,10 +179,35 @@ VARIANTS = {
     "none_of_three": (("skip_wload", "skip_rgemm", "skip_state"), False),
 }
 CURRENT = [v for v, (_, grad) in VARIANTS.items() if grad]
+# the bf16 operand mode's variants (--bf16), and its patches
+BF16_PATCHES = {
+    "ffma_fwd": [
+        (CMN, "    } else if constexpr (BF16 && !RW) {  // K2: f32 weights as three bf16 terms\n",
+         "    } else if constexpr (false) {\n"),
+        (K2, "    if constexpr (BF16) {\n      gemm_bf16x3_inplace(Wl, X, K, N, C * T);",
+         "    if constexpr (false) {\n      gemm_bf16x3_inplace(Wl, X, K, N, C * T);"),
+    ],
+    "two_term": [
+        (CMN, "      for (int nt = 0; nt < NTL; ++nt) mma_bf16(sl[nt], al, bt[nt]);",
+         "      for (int nt = 0; nt < NTL; ++nt) {}"),
+    ],
+    "chain": [       # the slab sums start from the accumulator, no FADD
+        (CMN, "        for (int e = 0; e < 4; ++e) sl[nt][e] = 0.f;",
+         "        for (int e = 0; e < 4; ++e) sl[nt][e] = acc[mt][nt][e];"),
+        (CMN, "        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += sl[nt][e];",
+         "        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = sl[nt][e];"),
+    ],
+}
+BF16_VARIANTS = {
+    "as_is": ((), True),
+    "ffma_forward": (("ffma_fwd",), True),
+    "bf16x2": (("two_term",), True),
+    "mma_chain": (("chain",), True),
+}
 
 # clock64 marks (phase index, anchor after which the phase ends)
 PHASES = ["tile start (xs, weight wait)", "forward", "last layer + cotangents",
-          "(a) + weight wait", "(d) backprop GEMM", "(d) store + (b) layer input",
+          "(a) + weight wait", "(d) backprop GEMM + store", "(b) layer input",
           "(c) W̄ GEMM + bias sums", "(c) W̄ epilogue + copies", "(a) layer 0",
           "W̄ layer 0"]
 CLOCK_PATCH = [
@@ -172,8 +227,7 @@ CLOCK_PATCH = [
      "        CLK(l == L - 2 ? 2 : 7);\n"),
     (K2, "        __syncthreads();               // Z̄ in X and Y; W_lᵀ staged in Z\n",
      "        __syncthreads();               // Z̄ in X and Y; W_lᵀ staged in Z\n        CLK(3);\n"),
-    (K2, "          mma_gemm(Z, X, N, K, M, acc);\n          __syncthreads();\n",
-     "          mma_gemm(Z, X, N, K, M, acc);\n          __syncthreads();\n          CLK(4);\n"),
+    (K2, "        // (b) this layer's input", "        CLK(4);\n        // (b) this layer's input"),
     (K2, "        }\n        __syncthreads();\n        // (c) W̄_l",
      "        }\n        __syncthreads();\n        CLK(5);\n        // (c) W̄_l"),
     (K2, "          __syncthreads();             // Y and Z are free\n",
@@ -252,22 +306,47 @@ def grad_err(got, want) -> float:
     return worst
 
 
-def cases(dev):
-    """[(label, kernel call, plain call, K1 sums or None)]: the main shape,
-    harmonic_paper's six runs, and the card tests' weights x1/x4 nets."""
+def _f64(v):
+    """v with its floating tensors (in nested tuples too) in float64."""
+    if isinstance(v, torch.Tensor) and v.is_floating_point():
+        return v.double()
+    if isinstance(v, tuple):
+        return tuple(_f64(t) for t in v)
+    return v
+
+
+def cases(dev, bf16: bool = False):
+    """[(label, kernel call, plain call, reference sums or None)]: the main
+    shape, harmonic_paper's six runs (with bf16 then the benchmark's shape:
+    the three timed), and the card tests' weights x1/x4 nets. f32: the
+    reference sums are K1's; bf16 (the kernels in the bf16 operand mode
+    against the bf16 plain versions, cotangents from K1-bf16's sums as the
+    exact step takes them): None, the plain version's sums. The plain call
+    takes a cast of its arguments (`_f64`: the same function in float64, the
+    bf16 operands rounded alike)."""
+    same = lambda v: v
     out = []
-    spec = EXPERIMENTS["gpe2d_ground_state"].spec
-    batch = make_batch(spec, 0, device=dev)
-    params = init_mlp(spec.layers, "xavier_uniform",
-                      generator=torch.Generator().manual_seed(0), device=dev)
-    kw = dict(activation=spec.activation, p=spec.p, kinetic=spec.kinetic,
-              nonlinearity=spec.nonlinearity)
-    a = (params, batch["x"], batch["V"], batch["w"], 5.0, 0.05)
-    base = (batch["base_val"], batch["base_lap"])
-    sums = k1.collocation_sums(*a, *base, **kw)
-    c = k1.sums_to_loss(sums, batch["x"].shape[0], spec.norm_weight)[3]
-    out.append(("K2", lambda: k2.collocation_grads(*a, c, *base, **kw),
-                lambda: k2.collocation_grads_plain(*a, c, *base, **kw), sums))
+    dt = dict(compute_dtype=torch.bfloat16) if bf16 else {}
+    grads_plain = k2.collocation_grads_bf16_plain if bf16 else k2.collocation_grads_plain
+    runs_plain = (k2.collocation_grads_runs_bf16_plain if bf16
+                  else k2.collocation_grads_runs_plain)
+    tag = "-bf16" if bf16 else ""
+
+    def single(label, spec):
+        batch = make_batch(spec, 0, device=dev)
+        params = init_mlp(spec.layers, "xavier_uniform",
+                          generator=torch.Generator().manual_seed(0), device=dev)
+        kw = dict(activation=spec.activation, p=spec.p, kinetic=spec.kinetic,
+                  nonlinearity=spec.nonlinearity)
+        a = (params, batch["x"], batch["V"], batch["w"], 5.0, 0.05)
+        base = (batch.get("base_val"), batch.get("base_lap"))
+        sums = k1.collocation_sums(*a, *base, **kw, **dt)
+        c = k1.sums_to_loss(sums, batch["x"].shape[0], spec.norm_weight)[3]
+        out.append((label, lambda: k2.collocation_grads(*a, c, *base, **kw, **dt),
+                    lambda cast=same: grads_plain(*cast((*a, c, *base)), **kw),
+                    None if bf16 else sums))
+
+    single("K2" + tag, EXPERIMENTS["gpe2d_ground_state"].spec)
 
     cfg = EXPERIMENTS["harmonic_paper"]
     rspec, modes = cfg.spec, cfg.modes
@@ -284,10 +363,14 @@ def cases(dev):
     ra = (rparams, rb["x"], rb["V"], rb["w"],
           torch.tensor([0.0, 0.5, 1.0, 2.0, 5.0, 10.0][:R], device=dev),
           torch.tensor([0.01 * (1 + r) for r in range(R)], device=dev))
-    rsums = k1.collocation_sums_runs(*ra, *rbase, **rkw)
+    rsums = k1.collocation_sums_runs(*ra, *rbase, **rkw, **dt)
     rc = k1.sums_to_loss(rsums, rb["x"].shape[0], rspec.norm_weight)[3]
-    out.append(("K3 grads", lambda: k2.collocation_grads_runs(*ra, rc, *rbase, **rkw),
-                lambda: k2.collocation_grads_runs_plain(*ra, rc, *rbase, **rkw), rsums))
+    out.append(("K3-grads-bf16" if bf16 else "K3 grads",
+                lambda: k2.collocation_grads_runs(*ra, rc, *rbase, **rkw, **dt),
+                lambda cast=same: runs_plain(*cast((*ra, rc, *rbase)), **rkw),
+                None if bf16 else rsums))
+    if bf16:
+        single("K2-bf16 bench", bench_spec())
 
     phys = ("shifted_tanh", 3.0, 0.5, "abs_power")
     for layers, n in (((2, 128, 128, 128, 1), 4096), ((1, 64, 64, 64, 1), 4000)):
@@ -301,12 +384,53 @@ def cases(dev):
             xa = (p, t(rng.uniform(-5.0, 5.0, (n, layers[0]))),
                   t(rng.uniform(0.0, 10.0, n)), t(np.full(n, 0.01)), 5.0, 0.05)
             xb = (t(rng.normal(0.0, 0.3, n)), t(rng.normal(0.0, 0.3, n)))
-            s = k1.collocation_sums(*xa, *xb, *phys)
+            s = k1.collocation_sums(*xa, *xb, *phys, **dt)
             cc = k1.sums_to_loss(s, n, 20.0)[3]
             out.append((f"{list(layers)} weights x{w_scale:g}",
-                        lambda xa=xa, xb=xb, cc=cc: k2.collocation_grads(*xa, cc, *xb, *phys),
-                        lambda xa=xa, xb=xb, cc=cc: k2.collocation_grads_plain(
-                            *xa, cc, *xb, *phys), s))
+                        lambda xa=xa, xb=xb, cc=cc: k2.collocation_grads(
+                            *xa, cc, *xb, *phys, **dt),
+                        lambda cast=same, xa=xa, xb=xb, cc=cc: grads_plain(
+                            *cast((*xa, cc, *xb)), *phys),
+                        None if bf16 else s))
+            if bf16 and w_scale == 4.0:        # test_k2_bf16_keeps_parity_at_weights_x4
+                out.append(card_x4(layers, xa, xb, phys, runs=6 if layers[0] == 1 else None))
+    return out
+
+
+def card_x4(layers, xa, xb, phys, runs=None):
+    """tests/test_torch_cuda.py's K2-bf16 x4 case on the same inputs: its
+    fixed cotangents and, with `runs`, its run stack (weights and bases
+    times 1 + 0.05·r, γ from 1 to 5)."""
+    p, x, V, w = xa[:4]
+    dev = x.device
+    cots = torch.tensor([2e-4, -8e-4, 8e-4, 0.3], device=dev)
+    gamma, scale, (bval, blap) = 5.0, 0.05, xb
+    grads, plain = k2.collocation_grads, k2.collocation_grads_bf16_plain
+    if runs:
+        stack = lambda t: torch.stack([t * (1.0 + 0.05 * r) for r in range(runs)])
+        p = tuple((stack(W), stack(b)) for W, b in p)
+        bval, blap = stack(bval), stack(blap)
+        gamma = torch.linspace(1.0, 5.0, runs, device=dev)
+        scale = torch.full((runs,), 0.05, device=dev)
+        cots = torch.stack([cots] * runs)
+        grads, plain = k2.collocation_grads_runs, k2.collocation_grads_runs_bf16_plain
+    a = (p, x, V, w, gamma, scale, cots, bval, blap)
+    return (f"card x4 {list(layers)}" + (f" R{runs}" if runs else ""),
+            lambda: grads(*a, *phys, compute_dtype=torch.bfloat16),
+            lambda cast=lambda v: v: plain(*cast(a), *phys), None)
+
+
+def k2_resources(build_dir: Path) -> dict:
+    """ptxas's registers and spills and cuobjdump's HMMA/FFMA counts of each
+    grads_kernel<D, BF16> in a build of fused_grad.cu (k4_variants.py's
+    readers)."""
+    from gpe_tpu_torch.experiments.k4_variants import ptxas_report, sass_report
+    out = ptxas_report((build_dir / "fused_grad.ptxas.log").read_text(), "grads_kernel")
+    for fn, rec in sass_report(build_dir / "libfused_grad.so").items():
+        k = re.search(r"grads_kernelILi(\d)ELb(\d)", fn)
+        if k:
+            out.setdefault(f"grads_kernel<{k.group(1)}, {bool(int(k.group(2)))}>",
+                           {}).update(rec)
     return out
 
 
@@ -332,58 +456,87 @@ def clocks(lib, fn, reps: int = 10, entry: str = "gpe_k2_clocks", phases=PHASES,
             "share": {ph: float(x / c.sum()) for ph, x in zip(phases, c)}}
 
 
+def patches_of(variant: str, bf16: bool) -> list:
+    """The patch list of `variant`, or of `<variant>+clocks` ("parent+clocks":
+    the clock marks alone, on the parent's sources)."""
+    name, _, clocked = variant.partition("+")
+    table, patches = (BF16_VARIANTS, BF16_PATCHES) if bf16 else (VARIANTS, PATCHES)
+    own = [] if name == "parent" else [x for p in table[name][0] for x in patches[p]]
+    return own + (CLOCK_PATCH if clocked else [])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("variants", nargs="*", metavar="VARIANT",
-                    help=f"any of {', '.join(VARIANTS)} (default: {', '.join(CURRENT)})")
+                    help=f"any of {', '.join(VARIANTS)} (default: {', '.join(CURRENT)}); "
+                         f"with --bf16 any of {', '.join(BF16_VARIANTS)} or parent "
+                         "(default: all, and parent with --parent)")
+    ap.add_argument("--bf16", action="store_true",
+                    help="the bf16 operand mode's variants (K2-bf16, K3-grads-bf16)")
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="with --bf16: the unpatched sources of the variant parent")
     ap.add_argument("--clocks", action="store_true",
-                    help="also the per-phase cycles of as_is and fragment_epilogue")
+                    help="also the per-phase cycles of as_is and fragment_epilogue "
+                         "(--bf16: of as_is and the parent, if timed)")
     args = ap.parse_args(argv)
-    args.variants = args.variants or CURRENT
-    unknown = sorted(set(args.variants) - set(VARIANTS))
+    if args.bf16:
+        known = set(BF16_VARIANTS) | ({"parent"} if args.parent else set())
+        args.variants = args.variants or list(BF16_VARIANTS) + ["parent"] * bool(args.parent)
+    else:
+        known = set(VARIANTS)
+        args.variants = args.variants or CURRENT
+    unknown = sorted(set(args.variants) - known)
     if unknown:
-        ap.error(f"unknown variants {unknown}")
+        ap.error(f"unknown variants {unknown} (parent needs --bf16 --parent)")
     if not torch.cuda.is_available():
         raise SystemExit("k2_variants needs a CUDA device")
     dev = torch.device("cuda", 0)
     pin_full_f32()
     name, limit = card_info(dev)
     print(f"{name}, {limit}", flush=True)
+    if args.bf16:                                # the port's own build
+        print(json.dumps({"resources": k2_resources(_build.build_all())}), flush=True)
     root = _build.BUILD_ROOT.parent / "k2_variants"
-    sources = {}
-    for v in args.variants:
-        write_variant(v, [x for p in VARIANTS[v][0] for x in PATCHES[p]], root)
-        sources[v] = root / v
-    if args.clocks:
-        for v in CLOCKED:
-            write_variant(v + "+clocks", [x for p in VARIANTS[v][0] for x in PATCHES[p]]
-                          + CLOCK_PATCH, root)
-            sources[v + "+clocks"] = root / (v + "+clocks")
+    clocked = ([v for v in ("as_is", "parent") if v in args.variants] if args.bf16
+               else CLOCKED) if args.clocks else []
+    names = list(args.variants) + [v + "+clocks" for v in clocked]
+    for v in names:
+        write_variant(v, patches_of(v, args.bf16), root,
+                      args.parent if v.startswith("parent") else None)
     t0 = time.perf_counter()
-    libs = build(sources)
+    libs = build({v: root / v for v in names})
     print(f"{len(libs)} builds in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    work = cases(dev)
+    table = BF16_VARIANTS if args.bf16 else VARIANTS
+    computes = lambda v: v == "parent" or table[v][1]
+    work = cases(dev, args.bf16)
+    timed = work[:3] if args.bf16 else work[:2]
+    refs = [plain(_f64)[0] for _, _, plain, _ in work]
+    print(json.dumps({"plain err64": {label: grad_err(plain()[0], ref) for (label, _, plain, _),
+                                      ref in zip(work, refs)}}), flush=True)
     res = {v: {"variant": v, "card": name, "power_limit": limit} for v in args.variants}
     for v in args.variants:
-        if not VARIANTS[v][1]:
+        if not computes(v):
             continue
         use(libs[v])
-        for label, fn, plain, sums in work:
-            grads, s = fn()
-            res[v][f"err {label}"] = grad_err(grads, plain()[0])
-            res[v][f"sums rel {label}"] = float(((s - sums).abs() / sums.abs()).max())
+        for (label, fn, plain, sums), ref in zip(work, refs):
+            (grads, s), (pgrads, ps) = fn(), plain()
+            res[v][f"err {label}"] = grad_err(grads, pgrads)
+            res[v][f"err64 {label}"] = grad_err(grads, ref)
+            s_ref = ps if sums is None else sums
+            res[v][f"sums rel {label}"] = float(((s - s_ref).abs() / s_ref.abs()).max())
     order = list(args.variants) + list(reversed(args.variants))
     for _ in range(2):
         for v in order:
             use(libs[v])
-            for (label, fn, _, _), iters in zip(work[:2], (30, 50)):
-                res[v].setdefault(f"{label} ms", []).append(time_ms(fn, iters, dev))
-    if args.clocks:
-        for v in CLOCKED:
-            res.setdefault(v, {"variant": v, "card": name, "power_limit": limit})
-            res[v]["clocks"] = {label: clocks(libs[v + "+clocks"], fn)
-                                for label, fn, _, _ in work[:2]}
+            for label, fn, _, _ in timed:
+                iters = 50 if label.startswith("K3") else 30
+                res[v].setdefault(f"{label} ms", []).append(graph_ms(fn, iters, dev))
+                res[v].setdefault(f"{label} call ms", []).append(time_ms(fn, iters, dev))
+    for v in clocked:
+        res.setdefault(v, {"variant": v, "card": name, "power_limit": limit})
+        res[v]["clocks"] = {label: clocks(libs[v + "+clocks"], fn)
+                            for label, fn, _, _ in timed}
     for r in res.values():
         print(json.dumps(r), flush=True)
     return 0

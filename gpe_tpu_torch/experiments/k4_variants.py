@@ -182,8 +182,8 @@ def patches_of(variant: str) -> list:
 
 
 def ptxas_report(log: str, kernel: str = "k4_kernel") -> dict:
-    """{"<kernel><D, BF16>": {"regs", "spill_stores", "spill_loads"}} from
-    ptxas's -v report of a build."""
+    """{"<kernel><D, BF16>": {"regs", "stack", "spill_stores", "spill_loads"}}
+    from ptxas's -v report of a build (bytes a thread)."""
     out, fn = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -191,10 +191,11 @@ def ptxas_report(log: str, kernel: str = "k4_kernel") -> dict:
             k = re.search(kernel + r"ILi(\d)ELb(\d)", m.group(1))
             fn = f"{kernel}<{k.group(1)}, {bool(int(k.group(2)))}>" if k else None
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if fn and m:
-            out.setdefault(fn, {}).update(spill_stores=int(m.group(1)),
-                                          spill_loads=int(m.group(2)))
+            out.setdefault(fn, {}).update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                          spill_loads=int(m.group(3)))
         m = re.search(r"Used (\d+) registers", line)
         if fn and m:
             out.setdefault(fn, {})["regs"] = int(m.group(1))

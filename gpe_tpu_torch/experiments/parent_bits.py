@@ -1,5 +1,5 @@
-"""The kernels that a change of K4's f32 GEMMs leaves alone, against a
-parent checkout's build of the same sources, bit for bit.
+"""The kernels that a change of K2's bf16 operand mode leaves alone, against
+a parent checkout's build of the same sources, bit for bit.
 
     python -m gpe_tpu_torch.experiments.parent_bits --parent <checkout>/gpe_tpu_torch/csrc
 
@@ -12,10 +12,10 @@ the parent's, on chip_smoke.py's inputs:
   harmonic_paper (six runs of [1,64,64,64,1] on 4,000 points); K2 and K3
   grads with the cotangents of the plain version's sums, so that K1's own
   sums do not enter: sums, and gradients with their sums;
-- K1-bf16 and K4-bf16 at the benchmark's shape (50,176 points,
-  [2,100,100,100,1], γ = 5, s = 0.05): the sums. K4 f32 is left out: its
-  GEMMs moved from FFMA to 3xTF32, so its sums differ from a parent's
-  before that change by design.
+- K4 (f32), K1-bf16 and K4-bf16 at the benchmark's shape (50,176 points,
+  [2,100,100,100,1], γ = 5, s = 0.05): the sums.
+(Against a parent from before a change to one of these kernels, that
+kernel differs by design.)
 Prints the card, then one JSON line: per kernel, whether every output
 equals the parent's to the bit. Exits 1 if one does not. Needs a CUDA
 device.
@@ -90,6 +90,7 @@ def calls(dev) -> dict:
         "K2": ("fused_grad", lambda: k2.collocation_grads(*a, cots, *base, **kw)),
         "K3 grads": ("fused_grad",
                      lambda: k2.collocation_grads_runs(*ra, rcots, *rbase, **rkw)),
+        "K4": ("rowcat_eval", lambda: k4.collocation_sums(*ba, **bkw)),
         "K1-bf16": ("fused_residual", lambda: k1.collocation_sums(
             *ba, **bkw, compute_dtype=torch.bfloat16)),
         "K4-bf16": ("rowcat_eval", lambda: k4.collocation_sums(

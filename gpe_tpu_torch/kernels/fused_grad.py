@@ -170,6 +170,20 @@ def collocation_grads_bf16_plain(params, x, V, w, gamma, scale, cots,
     return tuple(grads), sums
 
 
+def split_bf16x3(w: torch.Tensor):
+    """(hi, mid, lo): f32 `w` as the three bf16 terms that K2's bf16 mode
+    multiplies on the card (common.cuh split_bf16x3): hi = bf16(w), mid =
+    bf16(w − hi), lo = bf16(w − hi − mid), each rounded to nearest even,
+    the residuals taken in f32 (where they are exact). hi + mid + lo = w
+    exactly wherever lo is a bf16 value (|w| ≳ 2^-110), so a product
+    bf16(x)·w is the sum of three products that are each exact in f32."""
+    w = w.float()
+    hi = w.to(torch.bfloat16)
+    r = w - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
+
+
 def collocation_grads_runs_bf16_plain(params, x, V, w, gamma, scale, cots,
                                       base_val=None, base_lap=None,
                                       activation: str = "tanh", p: float = 3.0,

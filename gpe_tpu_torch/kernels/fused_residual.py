@@ -54,7 +54,9 @@ def check_compute_dtype(compute_dtype) -> bool:
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
-    return t.to(torch.bfloat16).float()
+    """t rounded to bf16 (nearest even), in t's dtype: a float64 run of a
+    bf16 plain version rounds the same operands."""
+    return t.to(torch.bfloat16).to(t.dtype)
 
 
 def fwdlap_mlp_bf16(params, x: torch.Tensor, activation: str = "tanh") -> ValGradLap:

@@ -797,17 +797,37 @@ def test_k2_bf16_matches_its_plain_version_on_the_card(cuda_device, layers, n, R
     np.testing.assert_allclose(s.cpu().numpy(), ws.cpu().numpy(), rtol=1e-4)
 
 
-def test_k2_bf16_keeps_parity_at_weights_x4(cuda_device):
-    """K2-bf16 with weights x4 at the main width against its plain version
-    (normalised 2e-4): the backprop's 3xTF32 products of bf16 cotangents and
-    f32 weights must keep f32 accuracy where saturated activations make the
-    gradient most sensitive."""
-    params, x, V, w, bval, blap = _inputs((2, 128, 128, 128, 1), 4096, cuda_device,
-                                          w_scale=4.0)
-    args = (params, x, V, w, 5.0, 0.05,
-            torch.tensor([2e-4, -8e-4, 8e-4, 0.3], device=cuda_device), bval, blap,
+@pytest.mark.parametrize("layers,n,R", [((2, 128, 128, 128, 1), 4096, None),
+                                        ((1, 64, 64, 64, 1), 4000, 6)])
+def test_k2_bf16_keeps_parity_at_weights_x4(cuda_device, layers, n, R):
+    """K2-bf16 (main width) and K3-grads-bf16 (six runs at width 64) with
+    weights x4 against the bf16 plain version (normalised 2e-4, sums rel
+    1e-4): the forward and backprop products of bf16 operands and f32
+    weights, each weight as three bf16 terms, must keep f32 accuracy where
+    saturated activations make the gradient most sensitive. A split that
+    drops the third term fails here (k2_variants.py's bf16x2), and so does
+    the three-term GEMM that chains its slabs through the tensor core's
+    truncating accumulator (its mma_chain): the bias of that adder flips
+    bf16 roundings of the next layer's state."""
+    params, x, V, w, bval, blap = _inputs(layers, n, cuda_device, w_scale=4.0)
+    cots = torch.tensor([2e-4, -8e-4, 8e-4, 0.3], device=cuda_device)
+    gamma, scale = 5.0, 0.05
+    grads_fn, plain_fn = k2.collocation_grads, k2.collocation_grads_bf16_plain
+    if R is not None:
+        stack = lambda t: torch.stack([t * (1.0 + 0.05 * r) for r in range(R)])
+        params = tuple((stack(W), stack(b)) for W, b in params)
+        bval, blap = stack(bval), stack(blap)
+        gamma = torch.linspace(1.0, 5.0, R, device=cuda_device)
+        scale = torch.full((R,), 0.05, device=cuda_device)
+        cots = torch.stack([cots] * R)
+        grads_fn, plain_fn = (k2.collocation_grads_runs,
+                              k2.collocation_grads_runs_bf16_plain)
+    args = (params, x, V, w, gamma, scale, cots, bval, blap,
             "shifted_tanh", 3.0, 0.5, "abs_power")
-    got, s = k2.collocation_grads(*args, compute_dtype=torch.bfloat16)
-    want, ws = k2.collocation_grads_bf16_plain(*args)
-    _grads_close(got, want)
+    got, s = grads_fn(*args, compute_dtype=torch.bfloat16)
+    want, ws = plain_fn(*args)
+    for r in range(R or 1):
+        pick = (lambda g: g) if R is None else (
+            lambda g: tuple((a[r], b[r]) for a, b in g))
+        _grads_close(pick(got), pick(want))
     np.testing.assert_allclose(s.cpu().numpy(), ws.cpu().numpy(), rtol=1e-4)

@@ -343,6 +343,31 @@ def test_k2_variant_patches_apply_to_the_kernel_source(variant, tmp_path):
         assert "gpe_k2_clocks" in out
 
 
+@pytest.mark.parametrize("variant", ["as_is", "ffma_forward", "bf16x2", "mma_chain",
+                                     "as_is+clocks", "parent+clocks"])
+def test_k2_bf16_variant_patches_apply_to_the_kernel_source(variant, tmp_path):
+    """experiments/k2_variants.py's bf16 variants (--bf16) still find their
+    anchor text in csrc/fused_grad.cu and csrc/common.cuh, each the expected
+    number of times, and change only the files they name; the clock marks
+    ("parent+clocks" alone) are text that a parent before the three-term
+    GEMM has too."""
+    from gpe_tpu_torch.experiments import k2_variants as kv
+    from gpe_tpu_torch.kernels import _build
+
+    patches = kv.patches_of(variant, bf16=True)
+    kv.write_variant(variant, patches, tmp_path)
+    files = ("fused_grad.cu", "common.cuh")
+    src = [(_build.CSRC / f).read_text() for f in files]
+    out = [(tmp_path / variant / f).read_text() for f in files]
+    assert (out == src) == (not patches)
+    touched = {f for f, *_ in patches}
+    assert all((o != s) == (f in touched) for f, o, s in zip(files, out, src))
+    if variant == "ffma_forward":      # forward_tile's and forward_deep's branches off
+        assert all("if constexpr (false)" in o for o in out)
+    if variant.endswith("+clocks"):
+        assert "gpe_k2_clocks" in out[0] and "CLK(4);" in out[0]
+
+
 @pytest.mark.parametrize("variant", ["as_is", "ffma_forward", "tf32x1", "one_block_per_sm",
                                      "half_warps", "as_is+clocks"])
 def test_k1_variant_patches_apply_to_the_kernel_source(variant, tmp_path):
