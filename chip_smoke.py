@@ -12,7 +12,7 @@ port's three paths on the card:
    the same function, CUDA events), K2's layout kernel (its padded weight
    copies) against its plain version, then (c) the port's runner
    (`experiments/run.py`) on the registered config with a shortened schedule,
-   its 120-step LM polish (timed) and the oracle score, plus short relaxed
+   its LM polish cut to 20 steps (timed) and the oracle score, plus short relaxed
    and exact fits, μ checked against the exact linear eigenvalue;
 2. the packed-ensemble path, `harmonic_paper` (4,000 points, six runs of
    [1,64,64,64,1], modes 0–5): the run-mode K1 and K2 (K3) held against
@@ -85,7 +85,7 @@ port's three paths on the card:
    100,100,1], 4,000 points, η = 10, clip 1.0, the α schedule) on the card
    against the CPU from the same params and probes (loss histories at
    1e-4; AdaHessian, Sophia and L-BFGS in float64), each timed on the card; (b) the runner's optimizer sweep at cut
-   depth (η ∈ {0, 10}, 300 epochs, seven optimizers); (c) the three
+   depth (η ∈ {0, 10}, 150 epochs, seven optimizers); (c) the three
    Helmholtz configs through the runner (500 epochs, 20 L-BFGS and 10 LM
    steps).
 10. DeepONet, the spectral-flow flagships, 3D and SNGD, which (but 10d's
@@ -126,6 +126,22 @@ port's three paths on the card:
    CPU; (d) rotating_dynamics, gpe_dynamics (f64 and --f32),
    gpe2d_vortex (Ω 0.9 from the committed oracle cache) and
    gpe2d_vortex_config at cut depth. 11b–d launch no kernel.
+12. the `numeric:` bases and the optical-lattice drivers (BASELINE #4):
+   (a) K1 and K2 at the lattice shape (16,384 points, [2,128,128,128,1],
+   the γ = 0 state of runs/gpe2d_lattice/oracle_cache.npz as a sine-series
+   base, timed at γ 5) against their plain versions; (b) that base at the
+   16,384 points, card against CPU in float64; (c) lattice_summary.py's
+   oracle (n 255, τ 2e-3, Richardson 2, γ 0 then 5) on the cache's V
+   against the committed mu_refs, and the port's own V against the cache's;
+   (d) gpe2d_lattice_plpinn's train_plpinn at full width, cut (ramp 0,
+   0.5, 1.0 of 300 epochs, 20 LM steps and the float64 endgame at γ = 0):
+   μ_lm(0) within 1e-2 of the oracle while a planted fault (the base's
+   Laplacian zeroed) misses it, its K1/K2 launches the rows' (path
+   "lattice"); (e) the lattice flagship's pipeline at one γ = 5 rung (the
+   10b cut, bc "dirichlet"), lattice_gamma0_band's net stage from the
+   committed band cache (300 Sobolev steps, 5 LM steps), and the JAX
+   flagship's params through `report` against the JAX package's CPU μ.
+   12c and 12e launch no kernel.
 
 A kernel row's "ms" is device time: CUDA events around replays of a CUDA
 graph of one wrapper call; "call_ms" is back-to-back calls, host work
@@ -412,14 +428,21 @@ def phase_k2(spec, batch, params, timing=(5.0, 0.05)):
             "library_ms": lib_ms}
 
 
+# Phase 1c's LM polish, cut from the config's 120 steps (1.17 s a step at
+# 50,176 points: the polish took 141 s of a 1,180 s script on a slow
+# host); no check reads its μ beyond finiteness, and phase 4 times the
+# f64 endgame from the JAX artifact's polished params.
+MAIN_LM_STEPS = 20
+
+
 def phase_main_path(cfg, dev):
     """The port's main path at full width and point count, shortened: (c)
     the runner (`experiments/run.py`) on gpe2d_ground_state with two γ rungs
-    of 300 epochs and 300 pretrain steps, the config's rebase and 120-step
-    LM polish (timed), and the oracle, into a temporary --out — its summary
-    has mu_ref and mu_abs_err, μ(0) is within 1e-2 of 1, μ rises with γ, K1
-    and K2 launched; then short relaxed and exact fits from its γ=0 params,
-    timed per step."""
+    of 300 epochs and 300 pretrain steps, the config's rebase and its LM
+    polish cut to MAIN_LM_STEPS (timed), and the oracle, into a temporary
+    --out — its summary has mu_ref and mu_abs_err, μ(0) is within 1e-2 of
+    1, μ rises with γ, K1 and K2 launched; then short relaxed and exact fits
+    from its γ=0 params, timed per step."""
     import tempfile
 
     from gpe_tpu_torch.experiments import run
@@ -435,7 +458,8 @@ def phase_main_path(cfg, dev):
     k2.collocation_grads.launches = 0
     with tempfile.TemporaryDirectory() as out:
         rc = run.main(["gpe2d_ground_state", "--train", "--epochs", "300", "--gammas",
-                       "0", "5", "--pretrain", "300", "--out", out])
+                       "0", "5", "--pretrain", "300", "--lm-steps", str(MAIN_LM_STEPS),
+                       "--out", out])
         exp = os.path.join(out, "gpe2d_ground_state")
         with open(os.path.join(exp, "summary.json")) as f:
             summary = json.load(f)
@@ -2133,7 +2157,7 @@ ZOO = [(n, {}) for n in ("adam", "adamw", "qhadam", "adahessian", "adabelief", "
                          "distributed_shampoo", "lbfgs")] + [("adam", {"plateau": {"patience": 3}})]
 ZOO_F64 = ("adahessian", "sophia", "lbfgs")
 ZOO_STEPS, ZOO_RTOL, ZOO_ETA = 10, 1e-4, 10.0
-ZOO_SWEEP = ["--gammas", "0", "10", "--epochs", "300"]
+ZOO_SWEEP = ["--gammas", "0", "10", "--epochs", "150"]
 HELMHOLTZ_RUN = ["--epochs", "500", "--lbfgs-steps", "20", "--lm-steps", "10"]
 
 
@@ -3072,6 +3096,241 @@ def phase_rotating(dev):
     return rows, fit_launches, launches, out
 
 
+# ---- phase 12: the numeric bases and the optical-lattice drivers (BASELINE #4)
+
+LATTICE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs", "gpe2d_lattice")
+NUMERIC_F64_RTOL = 1e-11   # the sine-series base card vs CPU in float64, per field,
+#                            of its max |·| (tests/test_torch_numeric.py's bound
+#                            against the JAX package)
+# 12c: the oracle at lattice_summary.py's settings (n 255, τ 2e-3, Richardson
+# 2, γ 0 then 5 warm-started) on the committed cache's V, against the
+# committed mu_refs; the port's own V (float32, as JAX evaluates it) is
+# held to the cache's within two float32 ulps of V's largest value (8).
+LATTICE_ORACLE_ATOL = 1e-9
+LATTICE_V_ATOL = 2e-6
+# 12d: gpe2d_lattice_plpinn's train_plpinn at full width, ramp 0, 0.5, 1.0
+# of 300 epochs, 20 LM steps (+ the float64 endgame) at γ = 0; μ_lm(0)
+# within LATTICE_PL_ATOL of the committed oracle's μ(0); the planted fault
+# (the base's Laplacian zeroed) must miss it.
+LATTICE_PLPINN = dict(ramp=[0.0, 0.5, 1.0], epochs=300, lm_steps=20)
+LATTICE_PL_ATOL = 1e-2
+# 12e: the JAX lattice flagship's params (runs/gpe2d_lattice/
+# ground_state_params.pkl) through the flow solver's `report` at γ = 20,
+# the JAX package's report arithmetic in f32 on a CPU (matmul precision
+# "highest"; tests/test_torch_lattice.py recomputes it with JAX); its
+# summary.json row, computed on the TPU, records 2.611372470855713. The
+# port's CPU report reads 7.2e-7 (3 ulps) off it.
+LATTICE_FLAGSHIP_MU = 2.611255168914795
+LATTICE_FLAGSHIP_ATOL = 2e-6
+# 12e cut: the flagship's pipeline at one γ = 5 rung (FLOW_PRETRAIN,
+# FLOW_CUT, bc "dirichlet"); stage_net from the committed band cache with
+# BAND_NET's steps (its 800 L-BFGS steps are stage_net's own).
+# At this depth the net's μ is not yet the state's (0.96 off E0*: a distill
+# MSE of 1.3e-3 on an H100), so the check is the orthogonality
+# rows': after the polish every projection onto the excited band states
+# stays under BAND_NET_PROJ (reads 7.3e-3).
+BAND_NET = dict(pretrain_epochs=300, polish_steps=5)
+BAND_NET_PROJ = 0.05
+# The cut flagship rung's μ_grid (its f64 endgame on the 128² collocation
+# grid) against the committed 255² oracle at γ = 5: reads 4.5e-7.
+LATTICE_FLOW_GRID_ATOL = 1e-5
+
+
+class _ZeroLap:
+    """A planted fault of a numeric base: its Laplacian zeroed."""
+
+    def __init__(self, series):
+        self.series = series
+
+    def __call__(self, pts):
+        import torch
+        from gpe_tpu_torch.physics.bases import ValGradLap
+        t = self.series(pts)
+        return ValGradLap(t.value, t.grad, torch.zeros_like(t.lap))
+
+
+def phase_lattice_kernels(dev, series, lb, ub):
+    """12a, 12b: the K1 and K2 rows at the lattice shape (16,384 points,
+    [2,128,128,128,1], the numeric base from the committed cache, timed at
+    γ 5, s 0.05), and the base card against CPU in float64."""
+    import numpy as np
+    import torch
+    from gpe_tpu_torch.experiments import gpe2d_lattice_plpinn as lp
+    from gpe_tpu_torch.models.mlp import init_mlp
+    from gpe_tpu_torch.physics.numeric import register_numeric_basis
+    from gpe_tpu_torch.train.problem import make_batch
+
+    spec = lp.lattice_spec(register_numeric_basis("lattice_gs", series), lb, ub)
+    batch = make_batch(spec, 0, device=dev)
+    params = init_mlp(spec.layers, "xavier_uniform",
+                      generator=torch.Generator().manual_seed(0), device=dev)
+    rows = []
+    for fn, name in ((phase_k1, "fused_residual_lattice"), (phase_k2, "fused_grad_lattice")):
+        row = fn(spec, batch, params, timing=(5.0, 0.05))
+        row["name"] = name
+        rows.append(row)
+    x = batch["x"].double()
+    t0 = time.perf_counter()
+    card = series(x)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    cpu = series(x.cpu())
+    errs = [float((a.cpu() - b).abs().max() / b.abs().max()) for a, b in zip(card, cpu)]
+    again = [float((a - b).abs().max()) for a, b in zip(series(x), card)]
+    log(f"12b numeric base at the 16,384 points in f64, card vs CPU: value, ∇, Δ "
+        f"{errs} of max |·| (bound {NUMERIC_F64_RTOL}); a second card call's max |Δ| "
+        f"{again}; {1e3 * card_s:.2f} ms on the card")
+    if not max(errs) <= NUMERIC_F64_RTOL or not all(np.isfinite(errs)):
+        raise AssertionError(f"numeric base card vs CPU: {errs}")
+    return rows, {"numeric_base_f64_err": errs, "numeric_base_ms": 1e3 * card_s}
+
+
+def phase_lattice_oracle(dev, cache):
+    """12c: the oracle at lattice_summary.py's settings on the card."""
+    import numpy as np
+    from gpe_tpu_torch.experiments.lattice_summary import lattice_potential_grid
+    from gpe_tpu_torch.io import load_bundle
+    from gpe_tpu_torch.validate.imaginary_time import imaginary_time_gpe
+
+    spec = load_bundle(os.path.join(LATTICE, "bundle.pkl"))["spec"]
+    V, xi, dx = lattice_potential_grid(spec, 255)
+    v_err = float(np.abs(V - cache["V"]).max())
+    if not (v_err <= LATTICE_V_ATOL and np.allclose(xi, cache["xi"], rtol=0, atol=1e-14)
+            and abs(dx - float(cache["dx"])) < 1e-15):
+        raise AssertionError(f"lattice_potential_grid against the cache: V {v_err}")
+    out, psi = {"V_err": v_err}, None
+    for i, g in enumerate((0.0, 5.0)):
+        t0 = time.perf_counter()
+        mu, psi = imaginary_time_gpe(cache["V"], dx, g, kinetic=float(spec["kinetic"]),
+                                     p=float(spec["p"]), tau=2e-3, richardson=2,
+                                     bc="dirichlet", psi0=psi, device=dev)
+        want = float(cache["mu_refs"][i])
+        psi_err = float(np.abs(psi.cpu().numpy() - cache["psis"][i]).max())
+        out[str(g)] = {"mu": mu, "abs_err": abs(mu - want), "psi_err": psi_err,
+                       "s": time.perf_counter() - t0}
+        log(f"12c oracle γ={g}: μ {mu!r} against the committed {want!r}: |Δ| "
+            f"{abs(mu - want):.3e}, max |Δψ| {psi_err:.3e}; {out[str(g)]['s']:.2f} s")
+        if not abs(mu - want) <= LATTICE_ORACLE_ATOL:
+            raise AssertionError(f"lattice oracle γ={g}: {mu} against {want}")
+    log(f"12c the port's own V (float32) against the cache's: max |ΔV| {v_err:.3e}")
+    return out
+
+
+def phase_lattice_plpinn(dev, series, lb, ub):
+    """12d: the K1/K2 path; returns (its launches, its numbers)."""
+    from gpe_tpu_torch.experiments import gpe2d_lattice_plpinn as lp
+    from gpe_tpu_torch.kernels import fused_grad as k2
+    from gpe_tpu_torch.kernels import fused_residual as k1
+    from gpe_tpu_torch.physics.numeric import register_numeric_basis
+
+    out, launches = {}, None
+    for label, base in (("numeric base", series), ("planted fault (Δ zeroed)",
+                                                   _ZeroLap(series))):
+        spec = lp.lattice_spec(register_numeric_basis("lattice_smoke", base), lb, ub)
+        k1.collocation_sums.launches = 0
+        k2.collocation_grads.launches = 0
+        res, _, wall = lp.train(spec, LATTICE_PLPINN["ramp"], [0.0],
+                                LATTICE_PLPINN["epochs"], LATTICE_PLPINN["lm_steps"],
+                                True, dev, verbose=False)
+        counts = {"fused_residual": k1.collocation_sums.launches,
+                  "fused_grad": k2.collocation_grads.launches}
+        if launches is None:
+            launches = counts
+        mu_lm = res.polished[0]["by_gamma"][0.0]
+        out[label] = {"mu_lm0": mu_lm, "mu_table": res.mu_table[0], "wall_s": wall,
+                      "seconds": res.seconds, "launches": counts}
+        log(f"12d gpe2d_lattice_plpinn (ramp {LATTICE_PLPINN['ramp']}, "
+            f"{LATTICE_PLPINN['epochs']} epochs, {LATTICE_PLPINN['lm_steps']} LM + f64 "
+            f"endgame at γ=0), {label}: μ_lm(0) {mu_lm!r}, μ table {res.mu_table[0]}, "
+            f"{wall:.2f} s, launches {counts}")
+    return launches, out
+
+
+def phase_lattice(dev):
+    """Phase 12 (a)–(e); returns (the K1/K2 rows at the lattice shape, the
+    launches of 12d's sound run, of 12c and 12e (all 0), its numbers)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from gpe_tpu_torch.experiments import gpe2d_lattice_flagship as lf
+    from gpe_tpu_torch.experiments import gpe2d_lattice_plpinn as lp
+    from gpe_tpu_torch.experiments import lattice_gamma0_band as band
+    from gpe_tpu_torch.io import load_params
+    from gpe_tpu_torch.models.mlp import init_mlp, params_from_numpy
+    from gpe_tpu_torch.train.pretrain import pretrain_to_base, run_lbfgs
+    from gpe_tpu_torch.train.problem import make_batch
+    from gpe_tpu_torch.train.spectral_flow import make_spectral_flow_solver
+
+    t_phase = time.perf_counter()
+    cache = np.load(os.path.join(LATTICE, "oracle_cache.npz"))
+    mu_refs = {float(g): float(m) for g, m in zip(cache["gammas"], cache["mu_refs"])}
+    series, lb, ub = lp.lattice_base(cache)
+    rows, out = phase_lattice_kernels(dev, series, lb, ub)
+    launches, out["plpinn"] = phase_lattice_plpinn(dev, series, lb, ub)
+    sound = out["plpinn"]["numeric base"]["mu_lm0"]
+    fault = out["plpinn"]["planted fault (Δ zeroed)"]["mu_lm0"]
+    if not (abs(sound - mu_refs[0.0]) <= LATTICE_PL_ATOL < abs(fault - mu_refs[0.0])):
+        raise AssertionError(f"12d μ_lm(0): {sound}, fault {fault}, against {mu_refs[0.0]}")
+    if not (launches["fused_grad"] >= len(LATTICE_PLPINN["ramp"]) * LATTICE_PLPINN["epochs"]
+            and launches["fused_residual"] > 0):
+        raise AssertionError(f"12d launches {launches}")
+
+    counters = _kernel_counters()
+    for _, reset in counters.values():
+        reset()
+    out["oracle"] = phase_lattice_oracle(dev, cache)
+    # 12e: the flagship cut to one γ = 5 rung
+    t0 = time.perf_counter()
+    run_lbfgs.steps = 0
+    spec = lf.flow_spec(lb, ub)
+    batch = make_batch(spec, 0, device=dev)
+    seed = lf.oracle_seed(cache, lb, ub, batch["x"].cpu().numpy())
+    params = init_mlp(spec.layers, generator=torch.Generator().manual_seed(0), device=dev)
+    params, pre_mse = pretrain_to_base(params, batch["x"], torch.as_tensor(
+        seed, dtype=spec.dtype, device=dev), spec.activation, **FLOW_PRETRAIN)
+    r = make_spectral_flow_solver(spec, tau=2e-2, bc="dirichlet", **FLOW_CUT)(
+        params, batch, 5.0)
+    out["flagship"] = {"s": time.perf_counter() - t0, "pretrain_mse": pre_mse,
+                       "mu_net": r.mu, "mu_grid": r.mu_grid, "seconds": r.seconds,
+                       "abs_err_net": abs(r.mu - mu_refs[5.0]),
+                       "abs_err_grid": abs(r.mu_grid - mu_refs[5.0]),
+                       "lbfgs_steps": run_lbfgs.steps}
+    log(f"12e gpe2d_lattice_flagship (cut, γ=5): {json.dumps(out['flagship'])}")
+    if not (math.isfinite(r.mu) and out["flagship"]["abs_err_grid"] < LATTICE_FLOW_GRID_ATOL):
+        raise AssertionError(f"12e flagship (cut): {out['flagship']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        sec = band.stage_net(128, 192, BAND_NET["pretrain_epochs"], BAND_NET["polish_steps"],
+                             1.0, read_dir=LATTICE, cache_dir=LATTICE, out_dir=tmp,
+                             device=dev)
+    out["band_net"] = {"s": time.perf_counter() - t0,
+                       **{k: sec[k] for k in ("mu_net", "abs_err_vs_E0_star", "pde_loss",
+                                              "distill_mse", "seconds",
+                                              "band_projections_after_polish")}}
+    log(f"12e lattice_gamma0_band stage_net (cut): {json.dumps(out['band_net'])}")
+    projs = sec["band_projections_after_polish"]
+    if not (math.isfinite(sec["mu_net"]) and math.isfinite(sec["pde_loss"])
+            and len(projs) == 8 and max(map(abs, projs)) < BAND_NET_PROJ):
+        raise AssertionError(f"12e band stage_net (cut): {out['band_net']}")
+    jparams = params_from_numpy(load_params(os.path.join(LATTICE, "ground_state_params.pkl")),
+                                device=dev)
+    mu, pde = make_spectral_flow_solver(spec, bc="dirichlet").report(
+        jparams, batch, torch.tensor(20.0, device=dev))
+    out["jax_params_mu"] = float(mu)
+    log(f"12e the JAX lattice flagship's params through report at γ=20: μ {float(mu)!r} "
+        f"(pde {float(pde):.3e}), the JAX package on a CPU {LATTICE_FLAGSHIP_MU!r}: |Δ| "
+        f"{abs(float(mu) - LATTICE_FLAGSHIP_MU):.3e}")
+    if not abs(float(mu) - LATTICE_FLAGSHIP_MU) <= LATTICE_FLAGSHIP_ATOL:
+        raise AssertionError(f"JAX lattice params: μ {float(mu)}")
+    quiet = {name: read() for name, (read, _) in counters.items()}
+    log(f"phase 12 (c, e) launches {quiet}")
+    if any(quiet.values()):
+        raise AssertionError(f"phase 12 (c, e) launched kernels: {quiet}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return rows, launches, quiet, out
+
+
 def main() -> int:
     try:
         import torch
@@ -3177,12 +3436,20 @@ def main() -> int:
         row["launches"] = bf16_fit_launches[row["name"]]
         row["launches_by_path"] = {"bf16_fits": row["launches"]}
     kernels += bf16_rows
+    t0 = time.perf_counter()
+    lattice_rows, lattice_launches, lattice_quiet, lattice = phase_lattice(dev)
+    phases["lattice"] = time.perf_counter() - t0
+    for row in lattice_rows:
+        row["launches"] = lattice_launches[row["name"][:-len("_lattice")]]
+        row["launches_by_path"] = {"lattice": row["launches"]}
+    kernels += lattice_rows
     by_path = {"cross_potential": cross_launches, "gravity_well_packed": gw_launches,
                "comparison": comparison, "beta_sweep": sweep_launches,
                "trainer_configs": trainer_launches,
                "zoo_curriculum_helmholtz": zoo_launches,
                "deeponet_flagships_sngd": flow_launches, "plpinn_3d": plpinn3d_launches,
-               "rotating_dynamics_drivers": rotating_launches}
+               "rotating_dynamics_drivers": rotating_launches,
+               "lattice_oracle_drivers": lattice_quiet}
     for k in kernels:
         if "launches" not in k:
             k["launches"] = launches[k["name"]]
@@ -3197,7 +3464,8 @@ def main() -> int:
                     "run_family": {k: family[k] for k in ("wall_s", "seconds",
                                                           "launches")},
                     "beta_sweep": sweep, "trainer_configs_s": trainer_s,
-                    "mesh": mesh, "zoo": zoo, "flow": flow, "rotating": rotating},
+                    "mesh": mesh, "zoo": zoo, "flow": flow, "rotating": rotating,
+                    "lattice": lattice},
                    default=str))
     check_no_children()
     print(json.dumps({"kernels": kernels}))

@@ -136,3 +136,32 @@ def fwdlap_mlp(params: Sequence[tuple], x: torch.Tensor,
     if out.shape[-1] == 1:
         return ValGradLap(out[:, 0], jac[:, :, 0], lap[:, 0])
     return ValGradLap(out, jac, lap)
+
+
+def value_grad_lap_generic(f: Callable, x: torch.Tensor) -> ValGradLap:
+    """(f, ∇f, Δf) for an arbitrary scalar f: (d,) → () written in torch
+    ops, by jvp-of-grad (`torch.func`), vmapped over the points.
+
+    Exact but slower than :func:`fwdlap_mlp`; the independent oracle in
+    tests and for ansatz factors without closed-form derivatives.
+    """
+    x = torch.as_tensor(x)
+    if x.ndim == 1:
+        x = x[:, None]
+    d = x.shape[-1]
+    grad_f = torch.func.grad(f)
+    eye = torch.eye(d, dtype=x.dtype, device=x.device)
+
+    def one(pt):
+        lap = 0.0
+        for i in range(d):
+            _, hvp = torch.func.jvp(grad_f, (pt,), (eye[i],))
+            lap = lap + hvp[i]
+        return f(pt), grad_f(pt), lap
+
+    val, g, lap = torch.func.vmap(one)(x)
+    return ValGradLap(val, g, lap)
+
+
+def laplacian_generic(f: Callable, x: torch.Tensor) -> torch.Tensor:
+    return value_grad_lap_generic(f, x).lap

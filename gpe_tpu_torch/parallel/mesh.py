@@ -295,21 +295,24 @@ def spawn(fn: Callable, nprocs: int, *args, backend: str = "gloo",
     be importable by module path; a rank's exception is raised here.
     Returns with no process of its own left running: multiprocessing's
     resource tracker, which the spawn starts for the ranks, is stopped once
-    they have exited (else it outlives this process by a moment)."""
+    they have exited (else it outlives this process by a moment). That
+    holds too where a tracker was recorded but had died: the spawn then
+    reaps it and starts a new one, which is the spawn's own. A tracker that
+    was running before the call is left running."""
     import tempfile
     from multiprocessing import resource_tracker
 
     import torch.multiprocessing as mp
 
     tracker = resource_tracker._resource_tracker
-    started_here = tracker._pid is None
+    pid_before = tracker._pid
     with tempfile.TemporaryDirectory() as d:
         init = "file://" + os.path.join(d, "store")
         try:
             mp.spawn(_rank_main, args=(fn, nprocs, backend, init, device, args),
                      nprocs=nprocs, join=True)
         finally:
-            if started_here:
+            if tracker._pid is not None and tracker._pid != pid_before:
                 _stop_resource_tracker(tracker)
 
 

@@ -90,8 +90,9 @@ class GPESpec:
 
 
 def base_triple(spec: GPESpec, mode: int, x: torch.Tensor) -> bases.ValGradLap:
-    """Analytic base eigenfunction triple of the spec's basis family (in 2D
-    and d ≥ 3 tensor products with the mode on the first axis)."""
+    """Base eigenfunction triple of the spec's basis family (in 2D and
+    d ≥ 3 tensor products with the mode on the first axis); a
+    "numeric:<name>" basis is looked up in physics.numeric.NUMERIC_BASES."""
     if spec.basis in ("hermite", "hermite2d"):
         if spec.dim == 2 or spec.basis == "hermite2d":
             return bases.hermite_product_2d(mode, 0, x)
@@ -105,9 +106,14 @@ def base_triple(spec: GPESpec, mode: int, x: torch.Tensor) -> bases.ValGradLap:
     if spec.basis == "airy":
         return bases.airy_basis(mode, x)
     if spec.basis.startswith("numeric:"):
-        raise NotImplementedError(
-            f"basis {spec.basis!r} (physics/numeric.py) is not ported yet; see "
-            "gpe_tpu.train.problem.base_triple")
+        # oracle-seeded sine-series base (physics/numeric.py): evaluated in
+        # float64 at x, returned in x's dtype
+        from gpe_tpu_torch.physics import numeric
+        if spec.basis not in numeric.NUMERIC_BASES:
+            raise KeyError(f"{spec.basis!r} not registered — call "
+                           "physics.numeric.register_numeric_basis first")
+        t = numeric.NUMERIC_BASES[spec.basis](mode, x)
+        return bases.ValGradLap(*(a.to(x.dtype) for a in t))
     raise ValueError(f"unknown basis {spec.basis!r}")
 
 

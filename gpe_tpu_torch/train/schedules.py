@@ -2,7 +2,8 @@
 
 `cosine_warm_restarts` is torch's CosineAnnealingWarmRestarts (T₀, T_mult)
 as a closed-form step → lr function on tensors, so it runs on the device
-(the loss-as-step LR of the ramp optimizer evaluates it at the loss).
+(the loss-as-step LR of the ramp optimizer evaluates it at the loss);
+`cosine_annealing` is CosineAnnealingLR the same way.
 """
 from __future__ import annotations
 
@@ -38,6 +39,23 @@ def cosine_warm_restarts(base_lr: float, T_0: int = 200, T_mult: int = 2,
         T_cur = T_0 * pk
         t = torch.clamp((s - start) / T_cur, 0.0, 1.0)
         return eta_min + 0.5 * (base_lr - eta_min) * (1.0 + torch.cos(math.pi * t))
+
+    return schedule
+
+
+def cosine_annealing(base_lr: float, T_max: int, eta_min: float = 1e-5):
+    """torch's CosineAnnealingLR as a step → lr function, the arithmetic of
+    optax's cosine_decay_schedule(base_lr, T_max, alpha=eta_min/base_lr)
+    (the reference's T_max = epochs/10, η_min = 1e−5): past T_max the lr
+    stays at η_min."""
+    if not T_max > 0:
+        raise ValueError(f"cosine_annealing requires positive T_max, got {T_max=}")
+    alpha = eta_min / base_lr
+
+    def schedule(step):
+        s = torch.clamp(_as_f32(step), max=float(T_max))
+        decay = 0.5 * (1.0 + torch.cos(math.pi * s / float(T_max)))
+        return base_lr * ((1.0 - alpha) * decay + alpha)
 
     return schedule
 

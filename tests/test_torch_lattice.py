@@ -1,0 +1,342 @@
+"""Port parity of the optical-lattice slice (BASELINE config #4) against the
+JAX package on the CPU: K1/K2's plain versions on the numeric lattice base
+against JAX's Pallas kernels in interpret mode, `train_plpinn` end to end on
+that base from JAX's params, the four drivers at tiny size
+(`experiments/lattice_summary.py`, `lattice_gamma0_band.py`,
+`gpe2d_lattice_plpinn.py`, `gpe2d_lattice_flagship.py`) on copies of their
+inputs, and the JAX flagship's net through the flow solver's `report`.
+
+Tolerances. K1 sums rtol 1e-4 and K2 gradients 2e-4 normalised (f32,
+tests/test_pallas*.py's; measured 2.4e-7 / 5.5e-7). `train_plpinn` (16²,
+[2,16,16,1], ramp 0, 0.5 of 10 epochs, 2 LM steps and the float64 endgame
+at γ = 0): μ table and polished μ within 3e-3 relative (the bound
+tests/test_torch_families_train.py sets for chaotic f32 runs pretrained by
+L-BFGS; measured 1.5e-4 in the μ table, 2.5e-5 in the polished μ). The
+oracle pass on the same V in float64: mu_refs and ψ within 1e-10. The port's own V
+is evaluated in float32, as JAX's, by another sin: within 2e-6 (two ulps at
+8) of JAX's. stage_grid on the same V: band energies within 1e-10. The JAX
+flagship's params through `report`: within 2e-6 of the JAX package's
+report arithmetic (f32, "highest"; measured 7.2e-7, three ulps of 2.61).
+"""
+import dataclasses
+import json
+import pickle
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from gpe_tpu.experiments import lattice_gamma0_band as jband  # noqa: E402
+from gpe_tpu.experiments import lattice_summary as jls  # noqa: E402
+from gpe_tpu.models import mlp as jmlp  # noqa: E402
+from gpe_tpu.pallas.fused_grad import make_pallas_value_and_grad  # noqa: E402
+from gpe_tpu.pallas.fused_residual import make_pallas_loss_eval  # noqa: E402
+from gpe_tpu.physics import numeric as jnum  # noqa: E402
+from gpe_tpu.train import plpinn as jpl  # noqa: E402
+from gpe_tpu.train import problem as jprob  # noqa: E402
+from gpe_tpu.validate import imaginary_time as jitime  # noqa: E402
+from gpe_tpu_torch.experiments import gpe2d_lattice_flagship as tlf  # noqa: E402
+from gpe_tpu_torch.experiments import gpe2d_lattice_plpinn as tlp  # noqa: E402
+from gpe_tpu_torch.experiments import lattice_gamma0_band as tband  # noqa: E402
+from gpe_tpu_torch.experiments import lattice_summary as tls  # noqa: E402
+from gpe_tpu_torch.io import load_bundle, load_params  # noqa: E402
+from gpe_tpu_torch.kernels import fused_grad as k2  # noqa: E402
+from gpe_tpu_torch.kernels import fused_residual as k1  # noqa: E402
+from gpe_tpu_torch.models.mlp import params_from_numpy  # noqa: E402
+from gpe_tpu_torch.physics.numeric import register_numeric_basis  # noqa: E402
+from gpe_tpu_torch.train import plpinn as tpl  # noqa: E402
+from gpe_tpu_torch.train import pretrain as tpre  # noqa: E402
+from gpe_tpu_torch.train import problem as tprob  # noqa: E402
+from gpe_tpu_torch.train import spectral_flow as tsf  # noqa: E402
+from gpe_tpu_torch.validate import imaginary_time as titime  # noqa: E402
+from test_torch_flagship import _cut, _j_report  # noqa: E402
+
+LATTICE = "runs/gpe2d_lattice"
+CACHE = np.load(f"{LATTICE}/oracle_cache.npz")
+SUMMARY = json.load(open(f"{LATTICE}/summary.json"))
+
+
+def _lattice_kw(n_points, layers):
+    """The drivers' lattice spec at a small size on the committed cache's
+    γ = 0 state, registered in both packages as "numeric:lattice_gs"."""
+    series, lb, ub = tlp.lattice_base(CACHE)
+    tname = register_numeric_basis("lattice_gs", series)
+    jname = jnum.register_numeric_basis(
+        "lattice_gs", jnum.SineSeries2D(CACHE["xi"], CACHE["psis"][0], lb, ub))
+    assert tname == jname
+    spec = tlp.lattice_spec(tname, lb, ub)
+    kw = {f.name: getattr(spec, f.name) for f in dataclasses.fields(spec) if f.name != "dtype"}
+    return dict(kw, n_points=n_points, layers=layers)
+
+
+def _phys(spec):
+    return (spec.layers, spec.activation, spec.p, spec.kinetic, spec.nonlinearity)
+
+
+def test_k1_k2_plain_versions_match_pallas_on_the_lattice_base():
+    """16², [2,16,16,1], the numeric lattice base, γ 5, s 0.05: each side on
+    its own batch (its own base evaluation)."""
+    kw = _lattice_kw(16, (2, 16, 16, 1))
+    jspec, tspec = jprob.GPESpec(**kw), tprob.GPESpec(**kw)
+    jparams = jmlp.init_mlp(jax.random.PRNGKey(0), jspec.layers)
+    tparams = params_from_numpy([(np.asarray(w), np.asarray(b)) for w, b in jparams],
+                                device="cpu")
+    jb, tb = jprob.make_batch(jspec, 0), tprob.make_batch(tspec, 0, device="cpu")
+    gamma, scale = 5.0, 0.05
+    ev = make_pallas_loss_eval(*_phys(jspec), tile=128, interpret=True)
+    want = np.asarray(jnp.stack(ev.collocation_sums(
+        jparams, jb["x"], jb["V"], jb["w"], gamma, scale, jb["base_val"], jb["base_lap"])))
+    got = k1.collocation_sums(tparams, tb["x"], tb["V"], tb["w"], gamma, scale,
+                              tb["base_val"], tb["base_lap"], tspec.activation, tspec.p,
+                              tspec.kinetic, tspec.nonlinearity)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4)
+    pvag = make_pallas_value_and_grad(*_phys(jspec), bc_weight=jspec.bc_weight,
+                                      norm_weight=jspec.norm_weight, tile=128,
+                                      sum_tile=128, interpret=True)
+    (p_tot, p_aux), p_grads = pvag(jparams, jb, jnp.float32(gamma), jnp.float32(scale))
+    tvag = k2.make_value_and_grad(*_phys(tspec), bc_weight=tspec.bc_weight,
+                                  norm_weight=tspec.norm_weight)
+    (tot, aux), grads = tvag(tparams, tb, gamma, scale)
+    np.testing.assert_allclose(float(tot), float(p_tot), rtol=1e-4)
+    np.testing.assert_allclose(float(aux["mu"]), float(p_aux["mu"]), rtol=1e-4)
+    for (gw, gb), (ww, wb) in zip(grads, p_grads):
+        for a, b in ((gw, ww), (gb, wb)):
+            b = np.asarray(b)
+            s = np.abs(b).max() + 1e-12
+            np.testing.assert_allclose(a.numpy() / s, b / s, atol=2e-4)
+
+
+def test_train_plpinn_on_the_lattice_base_matches_jax(monkeypatch):
+    """The driver's train_plpinn call cut to 16², [2,16,16,1], ramp 0, 0.5 of
+    10 epochs, 20 pretrain steps, 2 LM steps + the float64 endgame at γ = 0,
+    from the JAX package's initial params on both sides."""
+    kw = _lattice_kw(16, (2, 16, 16, 1))
+    run = dict(modes=(0,), epochs=10, tol=0.0, patience=10 ** 9, rebase=True,
+               keep_params=False, polish_checkpoints=[0.0], lm_steps=2, polish_x64=True,
+               pretrain_epochs=20, check_every=5)
+    init = jmlp.init_mlp(jax.random.PRNGKey(0), kw["layers"], "xavier_uniform")
+    jres = jpl.train_plpinn(jprob.GPESpec(**kw), [0.0, 0.5], **run)
+    carried = params_from_numpy([(np.asarray(w), np.asarray(b)) for w, b in init],
+                                device="cpu")
+    monkeypatch.setattr(tpl.mlp, "init_mlp", lambda *a, **k: carried)
+    tres = tpl.train_plpinn(tprob.GPESpec(**kw), [0.0, 0.5], device="cpu", **run)
+    jmu = [m for _, m in jres.mu_table[0]]
+    tmu = [m for _, m in tres.mu_table[0]]
+    np.testing.assert_allclose(tmu, jmu, rtol=3e-3)
+    jlm, tlm = jres.polished[0]["by_gamma"][0.0], tres.polished[0]["by_gamma"][0.0]
+    np.testing.assert_allclose(tlm, jlm, rtol=3e-3)
+    # the exact linear state is the base: μ(0) within 1e-2 of the oracle
+    assert abs(tlm - float(CACHE["mu_refs"][0])) < 1e-2 and tmu[1] > tmu[0]
+
+
+def _steps_cut(monkeypatch, module, steps):
+    """module.imaginary_time_gpe with `steps` where its caller gave none (the
+    Richardson levels' own calls pass theirs positionally, 2× and 4×)."""
+    fn = module.imaginary_time_gpe
+    monkeypatch.setattr(module, "imaginary_time_gpe", lambda *a, **kw: fn(
+        *a, **(kw if len(a) > 6 else {**kw, "steps": steps})))
+
+
+def _bundle_copy(path, gammas=None):
+    path.mkdir()
+    if gammas is None:
+        shutil.copy(f"{LATTICE}/bundle.pkl", path / "bundle.pkl")
+        return
+    with open(f"{LATTICE}/bundle.pkl", "rb") as f:
+        b = pickle.load(f)
+    b["mu_table"] = {0: [r for r in b["mu_table"][0] if r[0] in gammas]}
+    with open(path / "bundle.pkl", "wb") as f:
+        pickle.dump(b, f)
+
+
+def test_lattice_summary_matches_the_jax_driver(tmp_path, monkeypatch):
+    """Both drivers at --n-oracle 31 on a copy of the bundle cut to γ 0, 5,
+    each oracle level cut to 1,000 steps: on the same V (JAX's) mu_refs and
+    ψ within 1e-10, the cache's keys, the summary's sections; the port's own
+    V within 2e-6 of JAX's; nothing written but under --out."""
+    jdir, tdir = tmp_path / "j", tmp_path / "t"
+    _bundle_copy(jdir, (0.0, 5.0))
+    _bundle_copy(tdir, (0.0, 5.0))
+    _steps_cut(monkeypatch, jitime, 1000)
+    _steps_cut(monkeypatch, titime, 1000)
+    assert jls.main(["--dir", str(jdir), "--n-oracle", "31"]) == 0
+    spec = load_bundle(str(tdir / "bundle.pkl"))["spec"]
+    V_t, xi_t, dx_t = tls.lattice_potential_grid(spec, 31)
+    V_j, xi_j, dx_j = jls.lattice_potential_grid(spec, 31)
+    assert np.abs(V_t - V_j).max() <= 2e-6 and np.array_equal(xi_t, xi_j) and dx_t == dx_j
+    monkeypatch.setattr(tls, "lattice_potential_grid", jls.lattice_potential_grid)
+    out = tmp_path / "out"
+    (out).mkdir()
+    (out / "summary.json").write_text(json.dumps({"ground_state": "kept"}))
+    assert tls.main(["--dir", str(tdir), "--out", str(out), "--n-oracle", "31", "--cpu"]) == 0
+    want, got = np.load(jdir / "oracle_cache.npz"), np.load(out / "oracle_cache.npz")
+    assert set(got.files) == set(want.files)
+    np.testing.assert_allclose(got["mu_refs"], want["mu_refs"], rtol=0, atol=1e-10)
+    np.testing.assert_allclose(got["psis"], want["psis"], rtol=0, atol=1e-10)
+    for k in ("gammas", "xi", "dx", "V"):
+        np.testing.assert_array_equal(got[k], want[k])
+    js, ts = (json.loads((d / "summary.json").read_text()) for d in (jdir, out))
+    assert ts["ground_state"] == "kept" and ts["oracle"] == js["oracle"]
+    assert set(ts) == set(js) | {"ground_state"}
+    assert set(ts["localized_branch"]) == set(js["localized_branch"]) | {"seconds", "device"}
+    assert ts["localized_branch"]["rows"][0].keys() == js["localized_branch"]["rows"][0].keys()
+    assert sorted((tdir).iterdir()) == [tdir / "bundle.pkl"]
+
+
+def test_stage_grid_matches_jax(tmp_path, monkeypatch):
+    """k 3 at ns (15, 23) on the same V: energies, E* and the band table
+    within 1e-10; JAX's OUT/CACHE point at a copy, the port reads --dir and
+    writes --out."""
+    jdir, tdir, out = tmp_path / "j", tmp_path / "t", tmp_path / "out"
+    _bundle_copy(jdir)
+    _bundle_copy(tdir)
+    monkeypatch.setattr(jband, "OUT", str(jdir))
+    monkeypatch.setattr(jband, "CACHE", str(jdir / "band_cache.npz"))
+    monkeypatch.setattr(tls, "lattice_potential_grid", jls.lattice_potential_grid)
+    jband.stage_grid(3, ns=(15, 23))
+    table = tband.stage_grid(3, ns=(15, 23), read_dir=str(tdir), out_dir=str(out))
+    want, got = np.load(jdir / "band_cache.npz"), np.load(out / "band_cache.npz")
+    assert set(got.files) == set(want.files) and got["band"].shape == (23, 23, 3)
+    for k in ("energies", "e_star"):
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-10)
+    jt = json.loads((jdir / "band_table.json").read_text())
+    assert json.loads((out / "band_table.json").read_text()) == table
+    assert table.keys() == jt.keys()
+    for k in jt:
+        np.testing.assert_allclose(table[k], jt[k], rtol=0, atol=1e-10)
+
+
+def _merge_check(out, section):
+    s = json.loads((out / "summary.json").read_text())
+    assert s["other"] == {"kept": True} and isinstance(s[section], dict)
+    return s[section]
+
+
+def _seed_summary(out, section):
+    out.mkdir()
+    (out / "summary.json").write_text(json.dumps({"other": {"kept": True},
+                                                  section: "replaced"}))
+
+
+def test_plpinn_driver_main_cut(tmp_path, monkeypatch):
+    """The driver at 12², [2,8,8,1], --dgamma 5 (ramp 0…20 in 5 rungs) of 3
+    epochs, 1 LM step at each cached γ, 10 pretrain steps: the section's
+    keys are the JAX artifact's (plus seconds, launches, device), one row a
+    cached γ, the merge keeps the other sections."""
+    spec_fn = tlp.lattice_spec
+    monkeypatch.setattr(tlp, "lattice_spec", lambda *a: dataclasses.replace(
+        spec_fn(*a), n_points=12, layers=(2, 8, 8, 1)))
+    _cut(monkeypatch, tpl, "train_plpinn", pretrain_epochs=10)
+    out = tmp_path / "out"
+    _seed_summary(out, "plpinn_numeric_base")
+    assert tlp.main(["--out", str(out), "--epochs", "3", "--dgamma", "5", "--lm-steps", "1",
+                     "--cpu"]) == 0
+    sec = _merge_check(out, "plpinn_numeric_base")
+    jsec = SUMMARY["plpinn_numeric_base"]
+    assert set(sec) == set(jsec) | {"seconds", "launches", "device"}
+    assert [r["gamma"] for r in sec["rows"]] == [0.0, 5.0, 10.0, 20.0]
+    assert all(r.keys() == jsec["rows"][0].keys() for r in sec["rows"])
+    assert sec["epochs_per_gamma"] == 3 and sec["launches"] == {"fused_residual": 0,
+                                                                 "fused_grad": 0}
+    assert len(sec["seconds"]["fit_per_gamma"]) == 5
+
+
+def test_flagship_driver_main_cut(tmp_path, monkeypatch):
+    """The driver at --n 12 --width 8, its solver and pretraining cut: the
+    section's keys and the rows' keys are the JAX artifact's (plus the
+    port's seconds), the γ = 0 rung runs twice, the params are written and
+    the merge keeps the other sections."""
+    _cut(monkeypatch, tpre, "pretrain_to_base", lbfgs_steps=2)
+    _cut(monkeypatch, tsf, "make_spectral_flow_solver", final_inner_steps=5,
+         final_lbfgs_steps=2, polish_steps=1, endgame_steps=100)
+    out = tmp_path / "out"
+    _seed_summary(out, "ground_state")
+    assert tlf.main(["--out", str(out), "--n", "12", "--width", "8", "--pretrain-epochs",
+                     "5", "--outer", "1", "--inner", "2", "--cpu"]) == 0
+    sec = _merge_check(out, "ground_state")
+    jsec = SUMMARY["ground_state"]
+    assert set(sec) == set(jsec) | {"pretrain_s", "pretrain_mse", "device"}
+    assert [r["gamma"] for r in sec["rows"]] == [0.0, 5.0, 10.0, 20.0]
+    assert all(set(r) == set(jsec["rows"][1]) | {"seconds"} for r in sec["rows"])
+    assert [len(r["seconds"]) for r in sec["rows"]] == [2, 1, 1, 1]
+    assert sec["max_abs_err"] == max(r["abs_err"] for r in sec["rows"])
+    assert (out / "ground_state_params.pkl").exists()
+
+
+def test_band_net_stage_main_cut(tmp_path, monkeypatch):
+    """--stage net from the committed band cache at 12², width 8, 5 Sobolev
+    (+ 3 L-BFGS) steps and 1 LM step: the section's keys are the JAX
+    artifact's (plus seconds, device), the merge keeps the other sections."""
+    _cut(monkeypatch, tpre, "pretrain_sobolev", lbfgs_steps=3)
+    out = tmp_path / "out"
+    _seed_summary(out, "gamma0_band")
+    assert tband.main(["--stage", "net", "--out", str(out), "--n-colloc", "12", "--width",
+                       "8", "--pretrain-epochs", "5", "--polish-steps", "1", "--cpu"]) == 0
+    sec = _merge_check(out, "gamma0_band")
+    assert set(sec) == set(SUMMARY["gamma0_band"]) | {"seconds", "device"}
+    assert len(sec["band_projections_after_polish"]) == 8
+    assert sec["E0_star_eigsh"] == SUMMARY["gamma0_band"]["E0_star_eigsh"]
+    assert sec["mu_ref_imaginary_time"] == float(CACHE["mu_refs"][0])
+    assert sorted(p.name for p in out.iterdir()) == ["summary.json"]
+
+
+def test_jax_lattice_flagship_params_through_report():
+    """runs/gpe2d_lattice/ground_state_params.pkl at γ = 20 on the 128² grid:
+    the port's report against the JAX package's report arithmetic, and the
+    constant chip_smoke.py holds the card to is that JAX value."""
+    import chip_smoke
+
+    p = load_params(f"{LATTICE}/ground_state_params.pkl")
+    tspec = tlf.flow_spec(-8.0, 8.0)
+    kw = {f.name: getattr(tspec, f.name) for f in dataclasses.fields(tspec) if f.name != "dtype"}
+    jspec = jprob.GPESpec(**kw)
+    jax.config.update("jax_default_matmul_precision", "highest")
+    try:
+        want, _ = _j_report(jax.tree.map(jnp.asarray, p), jspec, jprob.make_batch(jspec, 0),
+                            20.0)
+    finally:
+        jax.config.update("jax_default_matmul_precision", None)
+    mu, _ = tsf.make_spectral_flow_solver(tspec, bc="dirichlet").report(
+        params_from_numpy(p, device="cpu"), tprob.make_batch(tspec, 0, device="cpu"),
+        torch.tensor(20.0))
+    assert abs(float(mu) - want) <= 2e-6
+    assert chip_smoke.LATTICE_FLAGSHIP_MU == pytest.approx(want, rel=1e-7)
+
+
+def test_lattice_potential_grid_is_the_cached_v():
+    """The port's V at n 255 (float32, as JAX's) against the committed
+    oracle cache's V: within two float32 ulps at 8; the grid exact."""
+    spec = load_bundle(f"{LATTICE}/bundle.pkl")["spec"]
+    V, xi, dx = tls.lattice_potential_grid(spec, 255)
+    assert np.abs(V - CACHE["V"]).max() <= 2e-6
+    np.testing.assert_array_equal(xi, CACHE["xi"])
+    assert dx == float(CACHE["dx"])
+
+
+def test_lattice_lm_probe_cut(monkeypatch, capsys):
+    """experiments/lattice_lm_probe.py at 12², [2,8,8,1], ramp 0, 0.5 of 3
+    epochs, 2 LM steps at each end: one record a polish, the μ table, and
+    `make_lm_solver` restored after it."""
+    from gpe_tpu_torch.experiments import lattice_lm_probe
+    from gpe_tpu_torch.train import gauss_newton
+
+    spec_fn = tlp.lattice_spec
+    monkeypatch.setattr(tlp, "lattice_spec", lambda *a: dataclasses.replace(
+        spec_fn(*a), n_points=12, layers=(2, 8, 8, 1)))
+    _cut(monkeypatch, tpl, "train_plpinn", pretrain_epochs=10)
+    make = gauss_newton.make_lm_solver
+    assert lattice_lm_probe.main(["--gmax", "0.5", "--epochs", "3", "--lm-steps", "2",
+                                  "--cpu"]) == 0
+    assert gauss_newton.make_lm_solver is make
+    lines = [json.loads(s) for s in capsys.readouterr().out.splitlines() if s.startswith("{")]
+    recs, last = lines[:-1], lines[-1]
+    assert [r["gamma"] for r in recs] == [0.0, 0.5]
+    assert all(r["steps"] == 2 and 0 <= r["accepted"] <= 1 for r in recs)
+    assert [g for g, _ in last["mu_table"]] == [0.0, 0.5]
+    assert set(last["polished"]) == {"0.0", "0.5"}

@@ -344,7 +344,31 @@ def _children():
 
 def test_spawn_leaves_no_process_running():
     """The ranks are joined and the resource tracker the spawn started for
-    them is stopped: after the call this process has the children it had."""
+    them is stopped: the call adds no child to this process. (A child that
+    an earlier test left may end, or be reaped, during the call; that is
+    not the spawn's, so only the added set is held.)"""
     before = _children()
     assert run_cases([], nprocs=2, backend="gloo", device="cpu") == [{}, {}]
-    assert _children() == before
+    after = _children()
+    assert not after - before, (f"added {sorted(after - before)}, "
+                                f"gone {sorted(before - after)}")
+
+
+def test_spawn_stops_a_tracker_it_relaunched():
+    """A resource tracker that was recorded but had died (here: killed) is
+    reaped by the spawn, which starts a new one for the ranks; that one is
+    the spawn's own and is stopped too: the call adds no child."""
+    import signal
+    import time
+    from multiprocessing import resource_tracker
+
+    resource_tracker.ensure_running()
+    tracker = resource_tracker._resource_tracker
+    os.kill(tracker._pid, signal.SIGKILL)
+    time.sleep(0.2)
+    before = _children()
+    with pytest.warns(UserWarning, match="resource_tracker"):
+        assert run_cases([], nprocs=2, backend="gloo", device="cpu") == [{}, {}]
+    after = _children()
+    assert not after - before, f"added {sorted(after - before)}"
+    assert tracker._pid is None

@@ -72,12 +72,12 @@ def test_run_main_linear_1d_sanity_on_the_cpu(tmp_path, monkeypatch, capsys):
 
 
 def test_run_main_refuses_what_the_port_lacks(tmp_path, monkeypatch):
-    """A `numeric:` basis (physics/numeric.py, not ported) raises
-    NotImplementedError through the runner, naming the module."""
+    """A `numeric:` basis that no one registered raises KeyError through the
+    runner, naming `register_numeric_basis`, as the JAX package does."""
     cfg = EXPERIMENTS["linear_1d_sanity"]
     monkeypatch.setitem(EXPERIMENTS, "linear_1d_sanity",
-                        replace(cfg, spec=replace(cfg.spec, basis="numeric:lattice")))
-    with pytest.raises(NotImplementedError, match="physics/numeric.py"):
+                        replace(cfg, spec=replace(cfg.spec, basis="numeric:never_registered")))
+    with pytest.raises(KeyError, match="register_numeric_basis"):
         run.main(["linear_1d_sanity", "--cpu", "--train", "--epochs", "2", "--pretrain",
                   "2", "--out", str(tmp_path)])
     assert run.main(["--list", "gpe2d_ground_state"]) == 0
