@@ -85,8 +85,8 @@ port's three paths on the card:
    100,100,1], 4,000 points, η = 10, clip 1.0, the α schedule) on the card
    against the CPU from the same params and probes (loss histories at
    1e-4; AdaHessian, Sophia and L-BFGS in float64), each timed on the card; (b) the runner's optimizer sweep at cut
-   depth (η ∈ {0, 10}, 150 epochs, seven optimizers); (c) the three
-   Helmholtz configs through the runner (500 epochs, 20 L-BFGS and 10 LM
+   depth (η ∈ {0, 10}, 50 epochs, seven optimizers); (c) the three
+   Helmholtz configs through the runner (200 epochs, 20 L-BFGS and 10 LM
    steps).
 10. DeepONet, the spectral-flow flagships, 3D and SNGD, which (but 10d's
    kernel rows and its 3D PL-PINN fit) launch no kernel: (a) the runner
@@ -142,6 +142,16 @@ port's three paths on the card:
    committed band cache (300 Sobolev steps, 5 LM steps), and the JAX
    flagship's params through `report` against the JAX package's CPU μ.
    12c and 12e launch no kernel.
+13. the split-step propagator with the grid in slabs
+   (`dynamics/sharded.py:evolve_sharded`, two all-to-all transposes a
+   step) over gloo ranks on the one card: float64 against the
+   single-device `evolve` on the card in the three 2D cases of
+   tests/test_dynamics_sharded.py (periodic real and imaginary time,
+   Dirichlet) at 256² on two ranks and its 3D case at 64³ on four, in
+   one spawn of four ranks (ψ 5e-13, observables rtol 1e-11), float32 at 256² (ψ 1e-5, μ 1e-5),
+   a planted fault (the tiles received in reverse rank order) that must
+   fail, and ms a step sharded, unsharded and of the all-to-alls. It
+   launches no kernel.
 
 A kernel row's "ms" is device time: CUDA events around replays of a CUDA
 graph of one wrapper call; "call_ms" is back-to-back calls, host work
@@ -1768,7 +1778,7 @@ TRAINER_RUNS = {
     "two_stage_beta_gamma": (["--betas", "1", "1.5", "2", "--gammas", "0", "1",
                               "--epochs", "100"], "mu_beta", 1.0),
     "p_ramp_harmonic": (["--epochs", "100", "--pretrain", "300"], "mu_table", None),
-    "deflation_harmonic": (["--epochs", "300", "--lm-steps", "5"], "mu_table", None),
+    "deflation_harmonic": (["--epochs", "100", "--lm-steps", "5"], "mu_table", None),
     "deflation_2d": (["--epochs", "100", "--lm-steps", "3"], "mu_table", None),
     "gpe2d_relobralo": (["--epochs", "100"], "mu", None),
 }
@@ -2144,7 +2154,9 @@ def phase_mesh(dev):
 # on the card and on the CPU from the same params, batch and probes: loss
 # histories at ZOO_RTOL; the card's f32 steps timed (ms a step).
 # (b) the runner's optimizer sweep cut in depth (ZOO_SWEEP); (c) the three
-# Helmholtz configs through the runner, cut (HELMHOLTZ_RUN).
+# Helmholtz configs through the runner, cut (HELMHOLTZ_RUN). (b) and (c) are
+# held to rc 0 and finite results alone, so their depth is the script's
+# time budget's: 50 and 200 epochs since phase 13 came (150 and 500 before).
 # AdaHessian and Sophia divide by Hutchinson's estimate of the Hessian
 # diagonal (Sophia also switches, element by element, between m/(γh) and
 # its clip where h ≈ 0), and L-BFGS's line search branches on comparisons
@@ -2157,8 +2169,8 @@ ZOO = [(n, {}) for n in ("adam", "adamw", "qhadam", "adahessian", "adabelief", "
                          "distributed_shampoo", "lbfgs")] + [("adam", {"plateau": {"patience": 3}})]
 ZOO_F64 = ("adahessian", "sophia", "lbfgs")
 ZOO_STEPS, ZOO_RTOL, ZOO_ETA = 10, 1e-4, 10.0
-ZOO_SWEEP = ["--gammas", "0", "10", "--epochs", "150"]
-HELMHOLTZ_RUN = ["--epochs", "500", "--lbfgs-steps", "20", "--lm-steps", "10"]
+ZOO_SWEEP = ["--gammas", "0", "10", "--epochs", "50"]
+HELMHOLTZ_RUN = ["--epochs", "200", "--lbfgs-steps", "20", "--lm-steps", "10"]
 
 
 def _kernel_counters() -> dict:
@@ -3331,6 +3343,140 @@ def phase_lattice(dev):
     return rows, launches, quiet, out
 
 
+# phase 13: the split-step propagator with the grid in slabs over gloo
+# ranks on the one card (dynamics/sharded.py, the port of the JAX package's
+# dry-run stage 6; gloo's all_to_all_single takes CUDA tensors). float64
+# against the single-device `evolve` on the same card at
+# tests/test_dynamics_sharded.py's bounds, in its three 2D cases at the
+# dynamics driver's grid (256², gpe_dynamics.py --n 256) on two ranks and
+# its 3D case at 64³ on four, record_every ∤ steps; float32 at stage 6's
+# bounds. A planted fault, the tiles received in reverse rank order
+# (mesh_check.reversed_all_to_all), must fail the ψ bound. The times are
+# two processes sharing one card: parity, not scaling. One spawn of four
+# ranks (a spawn's start-up, 20–55 s on one H100, is most of the phase):
+# the 2D cases run on a group of its first two (case_sharded's ranks=).
+SHARDED_RANKS, SHARDED_3D_RANKS = 2, 4
+SHARDED_PSI_ATOL, SHARDED_OBS_RTOL, SHARDED_OBS_ATOL = 5e-13, 1e-11, 1e-12
+SHARDED_F32_ATOL, SHARDED_F32_RTOL = 1e-5, 1e-5
+SHARDED_2D = dict(n=256, half=8.0, d=0.5)
+SHARDED_3D = dict(n=64, half=6.0, d=0.4)
+SHARDED_REPS = 100
+
+
+def _sharded_grid(n: int, half: float, d: float, dim: int):
+    """tests/test_dynamics_sharded.py's grid at n^dim: the harmonic trap and
+    a unit-norm Gaussian displaced by d along axis 0 (float64)."""
+    import numpy as np
+    x = np.linspace(-half, half, n, endpoint=False)
+    dx = float(x[1] - x[0])
+    X = np.meshgrid(*([x] * dim), indexing="ij")
+    V = 0.5 * sum(c ** 2 for c in X)
+    psi0 = np.exp(-0.5 * ((X[0] - d) ** 2 + sum(c ** 2 for c in X[1:]))).astype(complex)
+    psi0 /= np.sqrt(np.sum(np.abs(psi0) ** 2) * dx ** dim)
+    return float(x[0]), dx, V, psi0
+
+
+def phase_sharded(dev):
+    """Phase 13: `evolve_sharded` over SHARDED_RANKS gloo ranks on this card
+    at 256² (periodic real and imaginary time, Dirichlet; γ 20, dt 2e-3,
+    150 steps, a record every 50) and over SHARDED_3D_RANKS at 64³ (γ 10,
+    70 steps, a record every 30) in float64, and at 256² in float32 (γ 5,
+    dt 1e-3, 100 steps), each against the single-device `evolve` on the
+    card; the planted fault; ms a step of the sharded and the unsharded
+    propagator and of a step's two all-to-alls. One spawn of
+    SHARDED_3D_RANKS ranks, the 256² cases on its first SHARDED_RANKS.
+    Returns (the launches on this path: every kernel 0, in this process and
+    on each rank; numbers)."""
+    import numpy as np
+    import torch
+    from gpe_tpu_torch.dynamics import evolve
+    from gpe_tpu_torch.experiments.mesh_check import run_cases
+
+    t_phase = time.perf_counter()
+    counters = _kernel_counters()
+    for _, reset in counters.values():
+        reset()
+    lb, dx, V, psi0 = _sharded_grid(dim=2, **SHARDED_2D)
+    lb3, dx3, V3, psi3 = _sharded_grid(dim=3, **SHARDED_3D)
+    inputs = {f"{bc}_{im}": (psi0, V, dx, dict(dt=2e-3, steps=150, gamma=20.0, bc=bc, lb=lb,
+                                               imaginary=im, record_every=50))
+              for bc, im in (("periodic", False), ("periodic", True), ("dirichlet", False))}
+    inputs["f32"] = (psi0.astype(np.complex64), V.astype(np.float32), dx,
+                     dict(dt=1e-3, steps=100, gamma=5.0, lb=lb, record_every=50))
+    three_d = (psi3, V3, dx3, dict(dt=2e-3, steps=70, gamma=10.0, lb=lb3, record_every=30))
+    p0, V0, dx0, kw0 = inputs["periodic_False"]
+    # The 3D case first: the ranks outside the 256² cases' group then wait
+    # in the creation of the next group, and have exited by the timed case.
+    two = dict(ranks=SHARDED_RANKS)
+    cases = [("3d", "sharded", dict(psi0=psi3, V=V3, dx=dx3, **three_d[3]))]
+    cases += [(k, "sharded", dict(psi0=p, V=v, dx=d, **two, **kw))
+              for k, (p, v, d, kw) in inputs.items()]
+    cases += [("fault", "sharded", dict(psi0=p0, V=V0, dx=dx0, fault=True, **two, **kw0)),
+              ("timed", "sharded", dict(psi0=p0, V=V0, dx=dx0, reps=SHARDED_REPS, **two,
+                                        **kw0))]
+    t0 = time.perf_counter()
+    ranks = run_cases(cases, nprocs=SHARDED_3D_RANKS, backend="gloo")
+    spawn_s = time.perf_counter() - t0
+    for key in ranks[0]:
+        if "/obs_" in key or key.endswith("/psi"):
+            if not all(np.array_equal(r[key], ranks[0][key]) for r in ranks[1:] if key in r):
+                raise AssertionError(f"13: {key} differs across the ranks")
+    inputs["3d"] = three_d
+    got = ranks[0]
+    errs = {}
+    for label, (p, v, d, kw) in inputs.items():
+        psi_1, obs_1 = evolve(p, v, d, device=dev, **kw)
+        psi_1 = psi_1.cpu().numpy()
+        psi_err = float(np.abs(got[f"{label}/psi"] - psi_1).max())
+        obs_err = {k: float(np.max(np.abs(got[f"{label}/obs_{k}"] - obs_1[k]))
+                            / max(float(np.max(np.abs(obs_1[k]))), 1e-300))
+                   for k in ("norm", "energy", "mu", "center", "width_sq")}
+        if label == "f32":
+            ok = (psi_err <= SHARDED_F32_ATOL and obs_err["mu"] <= SHARDED_F32_RTOL)
+        else:
+            ok = psi_err <= SHARDED_PSI_ATOL and all(
+                np.allclose(got[f"{label}/obs_{k}"], obs_1[k], rtol=SHARDED_OBS_RTOL,
+                            atol=SHARDED_OBS_ATOL) for k in obs_err)
+        ok = ok and np.allclose(got[f"{label}/obs_t"], obs_1["t"])
+        errs[label] = {"psi": psi_err, "obs_rel": obs_err}
+        log(f"13 {label}: sharded vs single-device on the card: max|Δψ| {psi_err:.3e}, "
+            f"observables max|Δ|/max|value| {json.dumps(obs_err)}, μ(end) {obs_1['mu'][-1]!r}")
+        if not ok:
+            raise AssertionError(f"13 {label}: sharded propagator disagrees: {errs[label]}")
+        if label == "periodic_False":
+            fault_err = float(np.abs(got["fault/psi"] - psi_1).max())
+    log(f"13 planted fault (tiles in reverse rank order): max|Δψ| {fault_err:.3e} "
+        f"against the bound {SHARDED_PSI_ATOL:.0e}")
+    if not fault_err > SHARDED_PSI_ATOL:
+        raise AssertionError(f"13: the planted fault passed ({fault_err})")
+    timed = dict(kw0, steps=SHARDED_REPS, record_every=SHARDED_REPS)
+    single_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evolve(p0, V0, dx0, device=dev, **timed)
+        torch.cuda.synchronize()
+        single_ms.append(1e3 * (time.perf_counter() - t0) / SHARDED_REPS)
+    numbers = {"spawn_s": spawn_s, "errors": errs, "fault_psi_err": fault_err,
+               "sharded_step_ms": [float(r["timed/step_ms"]) for r in ranks[:SHARDED_RANKS]],
+               "a2a_ms": [float(r["timed/a2a_ms"]) for r in ranks[:SHARDED_RANKS]],
+               "single_step_ms": single_ms[-1]}
+    launches = {name: read() for name, (read, _) in counters.items()}
+    for r in ranks:
+        for key, v in r.items():
+            if "/launches_" in key:
+                name = key.split("/launches_")[1]
+                launches[name] = launches.get(name, 0) + int(v)
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    log(f"13 ms a step at 256² f64, periodic real time: sharded over {SHARDED_RANKS} ranks "
+        f"{numbers['sharded_step_ms']} (its two all-to-alls {numbers['a2a_ms']}), "
+        f"single-device {single_ms[-1]:.4f}; launches {launches}; phase "
+        f"{numbers['phase_s']:.1f} s (its spawn {spawn_s:.1f} s)")
+    if any(launches.values()):
+        raise AssertionError(f"phase 13 launched kernels: {launches}")
+    return launches, numbers
+
+
 def main() -> int:
     try:
         import torch
@@ -3443,13 +3589,17 @@ def main() -> int:
         row["launches"] = lattice_launches[row["name"][:-len("_lattice")]]
         row["launches_by_path"] = {"lattice": row["launches"]}
     kernels += lattice_rows
+    t0 = time.perf_counter()
+    sharded_launches, sharded = phase_sharded(dev)
+    phases["sharded"] = time.perf_counter() - t0
     by_path = {"cross_potential": cross_launches, "gravity_well_packed": gw_launches,
                "comparison": comparison, "beta_sweep": sweep_launches,
                "trainer_configs": trainer_launches,
                "zoo_curriculum_helmholtz": zoo_launches,
                "deeponet_flagships_sngd": flow_launches, "plpinn_3d": plpinn3d_launches,
                "rotating_dynamics_drivers": rotating_launches,
-               "lattice_oracle_drivers": lattice_quiet}
+               "lattice_oracle_drivers": lattice_quiet,
+               "sharded_dynamics": sharded_launches}
     for k in kernels:
         if "launches" not in k:
             k["launches"] = launches[k["name"]]
@@ -3465,7 +3615,7 @@ def main() -> int:
                                                           "launches")},
                     "beta_sweep": sweep, "trainer_configs_s": trainer_s,
                     "mesh": mesh, "zoo": zoo, "flow": flow, "rotating": rotating,
-                    "lattice": lattice},
+                    "lattice": lattice, "sharded": sharded},
                    default=str))
     check_no_children()
     print(json.dumps({"kernels": kernels}))

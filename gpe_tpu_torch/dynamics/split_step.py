@@ -45,20 +45,33 @@ def _dst1_ortho(a: torch.Tensor, axis: int) -> torch.Tensor:
     return F * (0.5j * math.sqrt(2.0 / (n + 1)))
 
 
+def _full_k2(shape: tuple, dx: float, bc: str, real_dtype, device=None):
+    """The Laplacian symbol k² of the bc's transform on the whole grid:
+    (2π·fftfreq)² per axis for periodic, (πj/((n+1)dx))² (j = 1..n) for
+    Dirichlet."""
+    dim = len(shape)
+    t = lambda a: torch.as_tensor(a, dtype=real_dtype, device=device)
+    if bc == "periodic":
+        ks = [t(2.0 * np.pi * np.fft.fftfreq(n, d=dx)) for n in shape]
+    elif bc == "dirichlet":
+        ks = [t(np.pi * np.arange(1, n + 1) / ((n + 1) * dx)) for n in shape]
+    else:
+        raise ValueError(f"unknown bc {bc!r}")
+    return sum(_axis_view(k, i, dim) ** 2 for i, k in enumerate(ks))
+
+
 def _spectral_ops(shape: tuple, dx: float, bc: str, real_dtype, device):
     """(to_spec, from_spec, k2, grad_sq_int): the transforms, the Laplacian
     symbol, and Σ_k k²·|coef|² times the Parseval weight (= ∫|∇ψ|²)."""
     dim = len(shape)
     vol = dx ** dim
-    t = lambda a: torch.as_tensor(a, dtype=real_dtype, device=device)
+    k2 = _full_k2(shape, dx, bc, real_dtype, device)
     if bc == "periodic":
-        ks = [t(2.0 * np.pi * np.fft.fftfreq(n, d=dx)) for n in shape]
         pw = vol / math.prod(shape)
         dims = tuple(range(dim))
         to_spec = lambda a: torch.fft.fftn(a, dim=dims)
         from_spec = lambda a: torch.fft.ifftn(a, dim=dims)
-    elif bc == "dirichlet":
-        ks = [t(np.pi * np.arange(1, n + 1) / ((n + 1) * dx)) for n in shape]
+    else:
         pw = vol
 
         def to_spec(a):
@@ -66,9 +79,6 @@ def _spectral_ops(shape: tuple, dx: float, bc: str, real_dtype, device):
                 a = _dst1_ortho(a, ax)
             return a
         from_spec = to_spec
-    else:
-        raise ValueError(f"unknown bc {bc!r}")
-    k2 = sum(_axis_view(k, i, dim) ** 2 for i, k in enumerate(ks))
 
     def grad_sq_int(coef):
         return torch.sum(k2 * (coef.real ** 2 + coef.imag ** 2)) * pw
@@ -96,22 +106,23 @@ def abs_pow(psi, q: float):
     return a2_pow(psi.real ** 2 + psi.imag ** 2, q)
 
 
-def observables(a2, ke, V, xs, gamma, p, vol, inter):
+def observables(a2, ke, V, xs, gamma, p, vol, inter, gsum=torch.sum):
     """norm, energy, μ, centre and width² (one 0-d/(dim,) tensor each) from
     |ψ|², the kinetic integral ke and Σ|ψ|^(p+1): the contract both engines
-    share."""
+    share. `gsum` is the global sum: `torch.sum` on one device, a sum over
+    the ranks' blocks when the grid is sharded (dynamics/sharded.py)."""
     dim = a2.ndim
-    norm = torch.sum(a2) * vol
-    pe = torch.sum(V * a2) * vol
+    norm = gsum(a2) * vol
+    pe = gsum(V * a2) * vol
     inter = inter * vol
     energy = (ke + pe + (2.0 * gamma / (p + 1.0)) * inter) / norm
     mu = (ke + pe + gamma * inter) / norm
     centers, widths = [], []
     for ax in range(dim):
         xa = _axis_view(xs[ax], ax, dim)
-        c = torch.sum(xa * a2) * vol / norm
+        c = gsum(xa * a2) * vol / norm
         centers.append(c)
-        widths.append(torch.sum(xa * xa * a2) * vol / norm - c * c)
+        widths.append(gsum(xa * xa * a2) * vol / norm - c * c)
     return {"norm": norm, "energy": energy, "mu": mu,
             "center": torch.stack(centers), "width_sq": torch.stack(widths)}
 
@@ -164,28 +175,50 @@ def evolve(psi0, V, dx: float, dt: float, steps: int, gamma: float,
     shape, dim = tuple(V.shape), V.ndim
     cd = complex_dtype(V.dtype)
     psi = torch.as_tensor(psi0, device=V.device).to(cd)
-    vol = dx ** dim
     xs = [torch.as_tensor(x, dtype=V.dtype, device=V.device)
           for x in axis_coords(shape, dx, lb, bc)]
     to_spec, from_spec, k2, grad_sq_int = _spectral_ops(shape, dx, bc, V.dtype,
                                                         V.device)
+    return evolve_core(psi, V, xs, dx ** dim, dt, steps, gamma, kinetic, p,
+                       imaginary, record_every, to_spec=to_spec, from_spec=from_spec,
+                       kin_prop=kinetic_factor(k2, dt, kinetic, imaginary),
+                       grad_sq_int=grad_sq_int, gsum=torch.sum)
+
+
+def kinetic_factor(k2, dt: float, kinetic: float, imaginary: bool):
+    """The spectral Strang factor exp(−i·dt·c·k²), or exp(−dt·c·k²) in
+    imaginary time, in the complex type of k²'s real type."""
     factor = -1.0 if imaginary else -1.0j
-    kin_prop = torch.exp((factor * dt * kinetic) * k2.to(cd))
-    half = 0.5 * dt * factor
+    return torch.exp((factor * dt * kinetic) * k2.to(complex_dtype(k2.dtype)))
+
+
+def evolve_core(psi, V, xs, vol: float, dt: float, steps: int, gamma: float,
+                kinetic: float, p: float, imaginary: bool, record_every: int, *,
+                to_spec, from_spec, kin_prop, grad_sq_int, gsum):
+    """The Strang loop of `evolve` on injected transforms and reductions: ψ
+    (complex, on V's device; `vol` the cell volume dx^dim) stepped `steps`
+    times and observed as `run_recorded` says; returns (ψ, obs) with obs's
+    "t". The single-device (`evolve`) and the mesh-sharded
+    (dynamics/sharded.py: slab transforms with all-to-all transposes) paths
+    differ only in to_spec / from_spec, kin_prop (the Strang factor on
+    to_spec's layout), grad_sq_int (Σ k²|coef|² times the Parseval weight)
+    and gsum (the global sum: `torch.sum` on one device)."""
+    cd = psi.dtype
+    half = 0.5 * dt * (-1.0 if imaginary else -1.0j)
 
     def step(psi):
         psi = psi * torch.exp(half * (V + gamma * abs_pow(psi, p - 1.0)).to(cd))
         psi = from_spec(to_spec(psi) * kin_prop)
         psi = psi * torch.exp(half * (V + gamma * abs_pow(psi, p - 1.0)).to(cd))
         if imaginary:
-            psi = psi / torch.sqrt(torch.sum(psi.real ** 2 + psi.imag ** 2) * vol)
+            psi = psi / torch.sqrt(gsum(psi.real ** 2 + psi.imag ** 2) * vol)
         return psi
 
     def observe(psi):
         a2 = psi.real ** 2 + psi.imag ** 2
         ke = kinetic * grad_sq_int(to_spec(psi))
         return observables(a2, ke, V, xs, gamma, p, vol,
-                           torch.sum(abs_pow(psi, p + 1.0)))
+                           gsum(abs_pow(psi, p + 1.0)), gsum)
 
     psi, obs = run_recorded(step, psi, observe, int(steps), int(record_every))
     obs["t"] = time_axis(int(steps), int(record_every), dt)

@@ -14,13 +14,18 @@ or relaxed, over a few steps), `fit` (`fit(mesh=)` on the fused or the plain rou
 `steps` (`make_parallel_loss`, `make_parallel_step`), `ensemble_step`
 (`make_ensemble_step`),
 `plpinn` (`train_plpinn(mesh=)`), `compare` (`train_single_model` and
-`train_multiple_runs` with `mesh=`) and `runner` (`experiments/run.py`'s
-main on every rank). chip_smoke.py runs them on the card at full width
-over two gloo ranks on one card; tests/test_torch_mesh*.py on the CPU.
-Every case records the K1/K2/K3 launches of its rank (0 on the CPU).
+`train_multiple_runs` with `mesh=`), `runner` (`experiments/run.py`'s
+main on every rank), `sharded` (`dynamics/sharded.py:evolve_sharded`, the
+grid in slabs, the port of the JAX package's dry-run stage 6) and
+`all_to_all` (`ops/collectives.all_to_all` on every pair of axes).
+chip_smoke.py runs them on the card at full width over gloo ranks on one
+card; tests/test_torch_mesh*.py and test_torch_sharded.py on the CPU.
+Every case but `all_to_all` records the K1/K2/K3 launches of its rank (0
+on the CPU).
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import tempfile
 import time
@@ -291,10 +296,89 @@ def case_runner(mesh, argv):
     return {"rc": np.int64(run.main(list(argv)))}
 
 
+def reversed_all_to_all(t, split_axis, concat_axis, group):
+    """A planted fault of the sharded propagator's transpose: the received
+    tiles concatenated in reverse rank order."""
+    from gpe_tpu_torch.ops.collectives import all_to_all
+
+    size = torch.distributed.get_world_size(group)
+    out = all_to_all(t, split_axis, concat_axis, group)
+    return torch.cat(torch.chunk(out, size, dim=concat_axis)[::-1], dim=concat_axis)
+
+
+def case_sharded(mesh, psi0, V, dx, reps: int = 0, fault: bool = False,
+                 ranks: int = 0, **kw):
+    """`evolve_sharded(psi0, V, dx, mesh=, **kw)` on this rank's slab: the
+    final ψ gathered (`sharded.gather`) and the observables (keys "obs_*").
+    ranks > 0 runs it on a group of the first `ranks` ranks, which every
+    rank joins in creating; the others return {}. fault=True runs it with
+    `reversed_all_to_all` as its transpose. With
+    reps > 0, milliseconds a step of a `reps`-step run (host clock,
+    synchronised, after one such run) and of the step's two all-to-alls
+    alone (`a2a_ms`: ψ's slab there and back, `reps` times). The rank's
+    kernel launches (none: the path runs no kernel of csrc/)."""
+    from gpe_tpu_torch.dynamics import sharded
+    from gpe_tpu_torch.kernels._common import LaunchCounter
+    from gpe_tpu_torch.ops.collectives import all_to_all
+
+    if ranks:
+        group = torch.distributed.new_group(list(range(ranks)))
+        if mesh.rank >= ranks:
+            return {}
+        mesh = dataclasses.replace(mesh, group=group, size=ranks)
+    counter = LaunchCounter(runs=True)
+    a2a = sharded.all_to_all
+    sharded.all_to_all = reversed_all_to_all if fault else a2a
+    try:
+        psi, obs = sharded.evolve_sharded(psi0, V, dx, mesh=mesh, **kw)
+        res = {"psi": sharded.gather(psi, mesh).cpu().numpy(),
+               **{f"obs_{k}": v for k, v in obs.items()}}
+        if reps:
+            timed = dict(kw, steps=reps, record_every=reps)
+            for _ in range(2):
+                torch.distributed.barrier(mesh.group)
+                _sync(mesh.device)
+                t0 = time.perf_counter()
+                sharded.evolve_sharded(psi0, V, dx, mesh=mesh, **timed)
+                _sync(mesh.device)
+                res["step_ms"] = 1e3 * (time.perf_counter() - t0) / reps
+            for _ in range(2):
+                torch.distributed.barrier(mesh.group)
+                _sync(mesh.device)
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    all_to_all(all_to_all(psi, 1, 0, mesh.group), 0, 1, mesh.group)
+                _sync(mesh.device)
+                res["a2a_ms"] = 1e3 * (time.perf_counter() - t0) / reps
+    finally:
+        sharded.all_to_all = a2a
+    res.update(_launches(counter))
+    return res
+
+
+def case_all_to_all(mesh, shape, seed: int = 0):
+    """`all_to_all` of this rank's block (complex128 and float32 from numpy
+    at seed + rank) for every (split, concat) pair of axes: keys
+    "<dtype>_<split><concat>"."""
+    from gpe_tpu_torch.ops.collectives import all_to_all
+
+    rng = np.random.default_rng(seed + mesh.rank)
+    z = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    res = {}
+    for name, block in (("c128", z), ("f32", z.real.astype(np.float32))):
+        t = torch.as_tensor(block, device=mesh.device)
+        for split in range(len(shape)):
+            for concat in range(len(shape)):
+                res[f"{name}_{split}{concat}"] = all_to_all(
+                    t, split, concat, mesh.group).cpu().numpy()
+    return res
+
+
 CASES = {"vag": case_vag, "fit": case_fit, "ensemble": case_ensemble,
          "packed": case_packed, "steps": case_steps,
          "ensemble_step": case_ensemble_step, "plpinn": case_plpinn,
-         "compare": case_compare, "runner": case_runner}
+         "compare": case_compare, "runner": case_runner, "sharded": case_sharded,
+         "all_to_all": case_all_to_all}
 
 
 def _rank_cases(mesh, cases, out: str):

@@ -340,3 +340,93 @@ def test_lattice_lm_probe_cut(monkeypatch, capsys):
     assert all(r["steps"] == 2 and 0 <= r["accepted"] <= 1 for r in recs)
     assert [g for g, _ in last["mu_table"]] == [0.0, 0.5]
     assert set(last["polished"]) == {"0.0", "0.5"}
+
+
+# The lattice continuation cut (ROADMAP Queue 3: does the rebased ramp leave
+# the first-order line μ₀ + 0.041902·γ of the frozen γ = 0 state?). The
+# driver's train_plpinn call (rebase, keep_params=False, tol 0, no polish,
+# 2,000 pretraining steps) at 24², [2,32,32,1], from JAX's initial params.
+# Step 1, 1,500 epochs a rung, γ 0..5 by 0.5, seeds 0–2 in both packages:
+#     JAX_PLATFORMS=cpu OMP_NUM_THREADS=1 python tests/lattice_cut.py --seed S
+# μ at γ = 0, 1, …, 5, JAX then the port:
+STEP1_MU = [
+    [2.045968, 2.086830, 2.126621, 2.139371, 2.169553, 2.189076],
+    [2.050663, 2.087615, 2.127465, 2.167615, 2.198550, 2.225332],
+    [2.049587, 2.087161, 2.127794, 2.168831, 2.205376, 2.224048],
+    [2.045958, 2.086955, 2.127605, 2.169548, 2.194557, 2.198394],
+    [2.046514, 2.087441, 2.127549, 2.167910, 2.208786, 2.245483],
+    [2.045573, 2.086796, 2.127388, 2.165495, 2.194155, 2.210432],
+]
+# The test's cut: the same at 1,000 epochs a rung. Leaving the line is a
+# runaway whose onset depends on the start: of seeds 0–8 at this cut, JAX
+# and the port leave it at the same five (0, 2, 3, 5, 6) and stay within
+# 4.2e-3 of it at the other four. The test holds three of the five, those
+# where the port's departure also survived a 1e-7 and a 1e-6 relative
+# perturbation of the initial weights (seed 2's did not). JAX's μ at γ = 0,
+# 1, …, 5 at LATTICE_SEEDS:
+#     JAX_PLATFORMS=cpu python tests/lattice_cut.py --package jax --dgamma 0.5 \
+#         --epochs 1000 --seed S
+LATTICE_CUT = dict(n_points=24, width=32, depth=2, epochs=1000, dgamma=0.5, gmax=5.0)
+LATTICE_SEEDS = (0, 3, 5)
+LATTICE_CUT_JAX = {
+    0: [2.0461378, 2.0873926, 2.1283727, 2.1679962, 2.2069013, 2.2124891],
+    3: [2.0474911, 2.0883446, 2.1297917, 2.1704173, 2.2015221, 2.2262263],
+    5: [2.0494208, 2.0884449, 2.1294081, 2.1698370, 2.2048967, 2.1939445],
+}
+
+
+@pytest.fixture(scope="module")
+def lattice_cuts():
+    """The port's cut at each of LATTICE_SEEDS from JAX's initial params,
+    one process a seed, run side by side (one thread each, as in this
+    process)."""
+    import functools
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from gpe_tpu_torch.experiments.lattice_cut import run_cut
+    from lattice_cut import jax_init
+
+    layers = (2,) + (LATTICE_CUT["width"],) * LATTICE_CUT["depth"] + (1,)
+    run = functools.partial(run_cut, cache_dir=LATTICE, device="cpu", **LATTICE_CUT)
+    with ProcessPoolExecutor(len(LATTICE_SEEDS), multiprocessing.get_context("spawn"),
+                             initializer=torch.set_num_threads, initargs=(1,)) as ex:
+        outs = ex.map(run, [jax_init(s, layers) for s in LATTICE_SEEDS], LATTICE_SEEDS)
+        return dict(zip(LATTICE_SEEDS, outs))
+
+
+def _integer_rungs(out):
+    """(γ, μ) of the cut's rungs at γ = 0, 1, …, 5: those step 1 records."""
+    table = [(g, m) for g, m in out["mu_table"] if g == round(g)]
+    assert [g for g, _ in table] == [0.0, 1.0, 2.0, 3.0, 4.0, 5.0]
+    return np.array([g for g, _ in table]), np.array([m for _, m in table])
+
+
+@pytest.mark.parametrize("seed", LATTICE_SEEDS)
+def test_lattice_cut_matches_jax_at_each_rung(lattice_cuts, seed):
+    """The port's μ against JAX's at each of the rungs γ = 0, 1, …, 5,
+    within the spread of step 1's six runs at that rung (both packages,
+    seeds 0–2)."""
+    _, mu = _integer_rungs(lattice_cuts[seed])
+    spread = np.ptp(np.array(STEP1_MU), axis=0)
+    np.testing.assert_array_less(np.abs(mu - np.array(LATTICE_CUT_JAX[seed])), spread)
+
+
+def test_lattice_continuation_leaves_the_first_order_line_as_jax_does(lattice_cuts):
+    """At most of LATTICE_SEEDS the port's last rung lies below the
+    first-order line by more than 10× the spread of step 1 on the rungs
+    where no run has left the line yet (γ 1 and 2; the γ = 0 rung is the
+    pretrained start, whose scatter is the pretraining's), and so does
+    JAX's at every one of them."""
+    on_line = np.ptp(np.array(STEP1_MU), axis=0)[1:3].max()
+    left = []
+    for seed in LATTICE_SEEDS:
+        out = lattice_cuts[seed]
+        gammas, mu = _integer_rungs(out)
+        m0, slope = out["line"]
+        assert abs(slope - 0.0419018) < 1e-6
+        line = m0 + slope * gammas
+        assert LATTICE_CUT_JAX[seed][-1] - line[-1] < -10 * on_line, seed
+        left.append(mu[-1] - line[-1] < -10 * on_line)
+    assert 2 * sum(left) > len(left), (
+        {s: lattice_cuts[s]["departure"][-1] for s in LATTICE_SEEDS}, on_line)
