@@ -152,6 +152,16 @@ port's three paths on the card:
    a planted fault (the tiles received in reverse rank order) that must
    fail, and ms a step sharded, unsharded and of the all-to-alls. It
    launches no kernel.
+14. the figures: (a) whether matplotlib imports on this host; (b) the
+   runner's wavefunction gather (`run.wavefunctions_from_bundle`, the
+   nets of runs/harmonic_quick/bundle.pkl on make_batch's grid) on the
+   card against the CPU, max|Δu| ≤ 1e-5; (c) the `.npz` figure files that
+   11d's drivers leave (rotating_dynamics, gpe_dynamics, gpe2d_vortex):
+   present, finite and shaped as their draw functions take them, and each
+   driver's record's `plot` (the PNGs, or where matplotlib does not import
+   the note naming `--plots`); (d) where matplotlib imports, each driver's
+   `--plots` draws from those files, each PNG non-empty. It launches no
+   kernel.
 
 A kernel row's "ms" is device time: CUDA events around replays of a CUDA
 graph of one wrapper call; "call_ms" is back-to-back calls, host work
@@ -3074,11 +3084,10 @@ def phase_dynamics_drivers(dev, tmp):
     return out
 
 
-def phase_rotating(dev):
-    """Phase 11 (a)–(d); returns (the bf16 kernel rows, the launches of 11a's
-    fits, of 11b–d (all 0), the record)."""
-    import tempfile
-
+def phase_rotating(dev, tmp):
+    """Phase 11 (a)–(d), 11d's drivers writing into `tmp`; returns (the
+    bf16 kernel rows, the launches of 11a's fits, of 11b–d (all 0), the
+    record)."""
     import torch
 
     t0 = time.perf_counter()
@@ -3098,8 +3107,7 @@ def phase_rotating(dev):
         reset()
     out["oracles"] = phase_rotating_oracles(dev)
     out["trainer"] = phase_vortex_trainer(dev)
-    with tempfile.TemporaryDirectory() as tmp:
-        out["drivers"] = phase_dynamics_drivers(dev, tmp)
+    out["drivers"] = phase_dynamics_drivers(dev, tmp)
     launches = {name: read() for name, (read, _) in counters.items()}
     log(f"phase 11 (b–d) launches {launches}")
     if any(launches.values()):
@@ -3477,6 +3485,133 @@ def phase_sharded(dev):
     return launches, numbers
 
 
+# ---- phase 14: the figures ------------------------------------------------
+# The wavefunction gather is f32 forward passes of the same nets on the same
+# grid: card against CPU within f32 round-off of |u| ≤ ~1.
+FIGURE_GATHER_ATOL = 1e-5
+# 11d's drivers, by their directory in its tmp: the figure files and the
+# summaries whose records carry `plot`
+DRIVER_FIGURES = {"rd": ("rotating_dynamics", ["rotating_dynamics.npz"], ["summary.json"]),
+                  "gd": ("gpe_dynamics", ["quench_modes.npz"],
+                         ["summary.json", "summary_f32.json"]),
+                  "gv": ("gpe2d_vortex", ["vortex_omega0.9.npz"], ["summary.json"])}
+
+
+def _check_figure_npz(path: str) -> dict:
+    """The arrays of one of 11d's figure files, checked finite and shaped
+    as its draw function takes them; returns their shapes."""
+    import numpy as np
+
+    d = dict(np.load(path))
+    for k, v in d.items():
+        if not np.all(np.isfinite(v)):
+            raise AssertionError(f"14c {path}: {k} is not finite")
+    name = os.path.basename(path)
+    if name == "rotating_dynamics.npz":
+        ok = (d["density"].shape == (128, 128) and d["density"].min() >= 0
+              and d["tau_t"].shape == d["lz"].shape == d["n_vortices"].shape
+              and d["t"].ndim == 1 and d["t"].shape == d["cx"].shape == d["x_pred"].shape
+              and d["lb"].shape == d["omega"].shape == ())
+    elif name == "quench_modes.npz":
+        ok = (d["t_k"].ndim == 1 and d["t_k"].shape == d["cx"].shape
+              and d["t_b"].shape == d["w2"].shape
+              and all(d[k].shape == () for k in ("d", "w_dip", "w_br")))
+    else:
+        ok = (d["psi"].shape == (128, 128) and np.iscomplexobj(d["psi"])
+              and float(d["omega"]) == 0.9
+              and all(d[k].shape == () for k in ("lb", "ub", "omega")))
+    if not ok:
+        raise AssertionError(f"14c {path}: shapes {({k: v.shape for k, v in d.items()})}")
+    return {k: list(v.shape) for k, v in d.items()}
+
+
+def phase_figures(dev, tmp):
+    """Phase 14 (a)–(d) on the files 11d's drivers left in `tmp`; returns
+    (the launches of every kernel over the phase (all 0), its numbers)."""
+    import glob
+
+    import numpy as np
+    import torch
+    from gpe_tpu_torch import viz
+    from gpe_tpu_torch.experiments import gpe2d_vortex, gpe_dynamics, rotating_dynamics
+    from gpe_tpu_torch.experiments.configs import EXPERIMENTS
+    from gpe_tpu_torch.experiments.run import wavefunctions_from_bundle
+    from gpe_tpu_torch.io import load_bundle
+
+    t_phase = time.perf_counter()
+    counters = _kernel_counters()
+    for _, reset in counters.values():
+        reset()
+    plots = viz.plots_or_none()
+    out = {"matplotlib": plots is not None}
+    log(f"14a matplotlib {'imports' if plots else 'does not import'} on this host"
+        + ("" if plots else ": the figures' arrays are gathered and saved, none is drawn"))
+
+    # (b) the wavefunction gather, card against CPU
+    cfg = EXPERIMENTS["harmonic_quick"]
+    bundle = load_bundle(os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs",
+                                      "harmonic_quick", "bundle.pkl"))
+    t0 = time.perf_counter()
+    x_card, u_card = wavefunctions_from_bundle(cfg, bundle, dev)
+    card_s = time.perf_counter() - t0
+    x_cpu, u_cpu = wavefunctions_from_bundle(cfg, bundle, torch.device("cpu"))
+    keys = {m: sorted(v) for m, v in u_card.items()}
+    if keys != {m: sorted(v) for m, v in u_cpu.items()}:
+        raise AssertionError(f"14b: the gathers' rungs differ: {keys}")
+    gap = max(float(np.max(np.abs(u_card[m][g] - u_cpu[m][g])))
+              for m in u_card for g in u_card[m])
+    x_gap = float(np.max(np.abs(x_card - x_cpu)))
+    n_curves = sum(len(v) for v in u_card.values())
+    out["gather"] = {"max_abs_du": gap, "max_abs_dx": x_gap, "curves": n_curves,
+                     "points": int(x_card.size), "card_s": card_s}
+    log(f"14b wavefunction gather of runs/harmonic_quick/bundle.pkl ({n_curves} curves at "
+        f"{x_card.size} points, modes {sorted(keys)}): card vs CPU max|Δu| {gap:.3e} "
+        f"(bound {FIGURE_GATHER_ATOL:.0e}), max|Δx| {x_gap:.3e}; {card_s:.2f} s on the card")
+    if not (gap <= FIGURE_GATHER_ATOL and x_gap <= FIGURE_GATHER_ATOL
+            and all(np.all(np.isfinite(u)) for v in u_card.values() for u in v.values())):
+        raise AssertionError(f"14b: the wavefunction gather leaves the CPU: {out['gather']}")
+
+    # (c) 11d's figure files and records
+    out["npz"] = {}
+    for sub, (driver, files, summaries) in DRIVER_FIGURES.items():
+        for f in files:
+            path = os.path.join(tmp, sub, f)
+            if not os.path.exists(path):
+                raise AssertionError(f"14c: {driver} left no {f}")
+            out["npz"][f] = _check_figure_npz(path)
+        for sname in summaries:
+            rec = json.load(open(os.path.join(tmp, sub, sname)))
+            plot = rec["results"][0]["plot"] if driver == "gpe2d_vortex" else rec["plot"]
+            want = ([f[:-len(".npz")] + ".png" for f in files] if plots else
+                    viz.not_written(f"python -m gpe_tpu_torch.experiments.{driver} "
+                                    f"--plots --out {tmp}/{sub}"))
+            if plot != want:
+                raise AssertionError(f"14c: {driver} {sname} plot {plot!r}, want {want!r}")
+    log(f"14c the drivers' figure files (finite, shaped for their draw functions): "
+        f"{json.dumps(out['npz'])}; each record's plot "
+        + ("lists its PNG" if plots else "names --plots (no matplotlib here)"))
+
+    # (d) the drivers' --plots from those files
+    if plots:
+        for sub, mod in (("rd", rotating_dynamics), ("gd", gpe_dynamics), ("gv", gpe2d_vortex)):
+            for png in glob.glob(os.path.join(tmp, sub, "*.png")):
+                os.remove(png)
+            mod.main(["--plots", "--out", os.path.join(tmp, sub)])
+            for f in DRIVER_FIGURES[sub][1]:
+                png = os.path.join(tmp, sub, f[:-len(".npz")] + ".png")
+                if not (os.path.exists(png) and os.path.getsize(png) > 0):
+                    raise AssertionError(f"14d: {png} was not drawn")
+        log("14d each driver's --plots drew its PNG from its .npz")
+    else:
+        log("14d skipped: matplotlib does not import here, so nothing is drawn")
+    launches = {name: read() for name, (read, _) in counters.items()}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"14 launches {launches}; phase {out['phase_s']:.2f} s")
+    if any(launches.values()):
+        raise AssertionError(f"phase 14 launched kernels: {launches}")
+    return launches, out
+
+
 def main() -> int:
     try:
         import torch
@@ -3575,8 +3710,13 @@ def main() -> int:
     for row in d3_rows:
         row["launches_by_path"] = {"plpinn_3d": row["launches"]}
     kernels += d3_rows
+    import tempfile
+
+    # 11d's drivers write their figure files here; phase 14 reads them
+    drivers_tmp = tempfile.TemporaryDirectory()
     t0 = time.perf_counter()
-    bf16_rows, bf16_fit_launches, rotating_launches, rotating = phase_rotating(dev)
+    bf16_rows, bf16_fit_launches, rotating_launches, rotating = phase_rotating(
+        dev, drivers_tmp.name)
     phases["rotating"] = time.perf_counter() - t0
     for row in bf16_rows:
         row["launches"] = bf16_fit_launches[row["name"]]
@@ -3592,6 +3732,10 @@ def main() -> int:
     t0 = time.perf_counter()
     sharded_launches, sharded = phase_sharded(dev)
     phases["sharded"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    figures_launches, figures = phase_figures(dev, drivers_tmp.name)
+    phases["figures"] = time.perf_counter() - t0
+    drivers_tmp.cleanup()
     by_path = {"cross_potential": cross_launches, "gravity_well_packed": gw_launches,
                "comparison": comparison, "beta_sweep": sweep_launches,
                "trainer_configs": trainer_launches,
@@ -3599,7 +3743,7 @@ def main() -> int:
                "deeponet_flagships_sngd": flow_launches, "plpinn_3d": plpinn3d_launches,
                "rotating_dynamics_drivers": rotating_launches,
                "lattice_oracle_drivers": lattice_quiet,
-               "sharded_dynamics": sharded_launches}
+               "sharded_dynamics": sharded_launches, "figures": figures_launches}
     for k in kernels:
         if "launches" not in k:
             k["launches"] = launches[k["name"]]
@@ -3615,7 +3759,7 @@ def main() -> int:
                                                           "launches")},
                     "beta_sweep": sweep, "trainer_configs_s": trainer_s,
                     "mesh": mesh, "zoo": zoo, "flow": flow, "rotating": rotating,
-                    "lattice": lattice, "sharded": sharded},
+                    "lattice": lattice, "sharded": sharded, "figures": figures},
                    default=str))
     check_no_children()
     print(json.dumps({"kernels": kernels}))

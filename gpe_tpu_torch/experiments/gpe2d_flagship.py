@@ -9,13 +9,17 @@ endgame, against the float64 imaginary-time oracle on a 384² grid.
 
     python -m gpe_tpu_torch.experiments.gpe2d_flagship [--n 224] [--width 128]
         [--gammas G ...] [--outer 200] [--inner 80] [--out DIR] [--cpu]
+    python -m gpe_tpu_torch.experiments.gpe2d_flagship --plots [--out DIR]
 
 Writes `<out>/params.pkl` (`io.save_params`) and `<out>/summary.json` with
 the JAX run's keys ({"ramp", "summary"}); each rung's record adds
 `seconds` (interleave, endgame, distill, polish, report) and the summary
-adds `seconds` (pretrain, ramp, oracle) and the device. No plot (`viz/` is
-not ported). The run is on the CUDA card unless `--cpu` is given; `--out`
-defaults to `runs_torch/gpe2d_flagship`.
+adds `seconds` (pretrain, ramp, oracle), the device and `plot`. The net's
+ψ on the training grid goes to `<out>/flagship_solution.npz`, from which
+`flagship_solution.png` is drawn where matplotlib is installed (`plot`
+lists it, or names the `--plots` command that draws it on another host).
+The run is on the CUDA card unless `--cpu` is given; `--out` defaults to
+`runs_torch/gpe2d_flagship`.
 """
 from __future__ import annotations
 
@@ -24,12 +28,15 @@ import json
 import os
 import time
 
+import numpy as np
+
+from gpe_tpu_torch import viz
+
 
 def psi_errors(params, spec, x1, psi_ref):
     """Wavefunction errors of the net against the oracle's grid state: the
     net evaluated on the oracle's (finer) grid, L2-normalised with the grid
     measure, sign-aligned; returns (‖ψ_net − ψ_ref‖_L2, max|Δψ|)."""
-    import numpy as np
     import torch
 
     from gpe_tpu_torch.models import mlp
@@ -52,6 +59,13 @@ def psi_errors(params, spec, x1, psi_ref):
     return float(np.sqrt(np.sum(diff * diff) * dx * dx)), float(np.max(np.abs(diff)))
 
 
+def draw_flagship_solution(out_dir: str, plots) -> list:
+    """flagship_solution.png (|ψ| on the training grid) from
+    `<out_dir>/flagship_solution.npz`."""
+    d = np.load(viz.saved(os.path.join(out_dir, "flagship_solution.npz")))
+    return [plots.plot_solution_2d(d["xy"], d["u"], out_dir, "flagship_solution.png")]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=224, help="grid side (n² points)")
@@ -62,9 +76,13 @@ def main(argv=None):
     ap.add_argument("--inner", type=int, default=80)
     ap.add_argument("--out", default="runs_torch/gpe2d_flagship")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
+    ap.add_argument("--plots", action="store_true",
+                    help="draw the figure from <out>/flagship_solution.npz; run nothing")
     args = ap.parse_args(argv)
+    if args.plots:
+        viz.draw_saved(lambda plots: draw_flagship_solution(args.out, plots))
+        return 0
 
-    import numpy as np
     import torch
 
     from gpe_tpu_torch.device import pin_full_f32, resolve_device
@@ -136,9 +154,16 @@ def main(argv=None):
         "seconds": seconds,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
     }
+    os.makedirs(args.out, exist_ok=True)
+    with torch.no_grad():
+        u = mlp.mlp_apply(params, batch["x"], spec.activation)
+    np.savez(os.path.join(args.out, "flagship_solution.npz"),
+             xy=batch["x"].cpu().numpy(), u=u.cpu().numpy())
+    summary["plot"] = viz.draw(
+        lambda plots: draw_flagship_solution(args.out, plots),
+        f"python -m gpe_tpu_torch.experiments.gpe2d_flagship --plots --out {args.out}")
     print(json.dumps(summary), flush=True)
 
-    os.makedirs(args.out, exist_ok=True)
     save_params(os.path.join(args.out, "params.pkl"), params)
     with open(os.path.join(args.out, "summary.json"), "w") as f:
         json.dump({"ramp": results, "summary": summary}, f, indent=2)

@@ -22,6 +22,7 @@ alone: it drops every row of another γ and overwrites a row of another
 width or schedule at the same Ω.)
 
     python -m gpe_tpu_torch.experiments.gpe2d_vortex [--omegas 0.0 0.7 0.9] [--cpu]
+    python -m gpe_tpu_torch.experiments.gpe2d_vortex --plots [--out DIR]
     CPU smoke: ... --cpu --n 24 --width 24 --omegas 0.7 --fit-epochs 30 \
                --lbfgs-steps 3 --polish-steps 2 --cg-iters 5 --sobolev-n 20 \
                --oracle-steps 400
@@ -29,19 +30,27 @@ width or schedule at the same Ω.)
 `--seed` seeds the net's initial draw (`train_rotating_vortex`'s CPU
 generator, 0 by default); another seed is a second witness of a row.
 
-Writes `<out>/summary.json` (the JAX run's keys; each row adds `settings`
-and `polish`, the LM polish's verdict with μ, pde, ⟨L_z⟩ and E before and
-after it) and `<out>/params_omega<Ω>.pkl`; `--out` defaults to
-`runs_torch/gpe2d_vortex`. On the CUDA card unless `--cpu`. No plot (`viz/`
-is not ported).
+Writes `<out>/summary.json` (the JAX run's keys; each row adds `settings`,
+`polish`, the LM polish's verdict with μ, pde, ⟨L_z⟩ and E before and
+after it, and `plot`) and `<out>/params_omega<Ω>.pkl`; `--out` defaults to
+`runs_torch/gpe2d_vortex`. On the CUDA card unless `--cpu`. The net's ψ on
+the n² grid goes to `<out>/vortex_omega<Ω>.npz`, from which
+`vortex_omega<Ω>.png` (|ψ|² and arg ψ) is drawn where matplotlib is
+installed (a row's `plot` lists it, or names the `--plots` command, which
+draws every such file in `--out`).
 """
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import os
 import time
 from pathlib import Path
+
+import numpy as np
+
+from gpe_tpu_torch import viz
 
 REPO = Path(__file__).resolve().parents[2]
 ORACLE_DIR = REPO / "runs" / "gpe2d_vortex"
@@ -78,6 +87,34 @@ def cached_target(n: int, lb: float, ub: float, device):
                     "mu_star": target[1], "E_star": table[name]["E_star"]}
 
 
+def draw_vortex(npz_path: str, out_dir: str, plots) -> list:
+    """The PNG of one Ω row (|ψ|² and arg ψ on [lb, ub]²) from its
+    `vortex_omega<Ω>.npz`, named after it."""
+    d = np.load(npz_path)
+    plt = plots.plt
+    psi, lb, ub, omega = d["psi"], float(d["lb"]), float(d["ub"]), float(d["omega"])
+    fig, axes = plt.subplots(1, 2, figsize=(9, 4))
+    axes[0].imshow(np.abs(psi).T ** 2, origin="lower", extent=[lb, ub, lb, ub])
+    axes[0].set_title(f"|ψ|²  Ω={omega}")
+    axes[1].imshow(np.angle(psi).T, origin="lower", cmap="twilight",
+                   extent=[lb, ub, lb, ub])
+    axes[1].set_title("arg ψ")
+    path = os.path.join(out_dir, os.path.basename(npz_path)[:-len(".npz")] + ".png")
+    fig.savefig(path, dpi=130, bbox_inches="tight")
+    plt.close(fig)
+    return [path]
+
+
+def draw_vortices(out_dir: str, plots) -> list:
+    """The PNG of every `vortex_omega<Ω>.npz` in `out_dir`, by Ω."""
+    files = sorted(glob.glob(os.path.join(out_dir, "vortex_omega*.npz")),
+                   key=lambda f: float(os.path.basename(f)[len("vortex_omega"):-len(".npz")]))
+    if not files:
+        raise FileNotFoundError(f"--plots draws from {out_dir}/vortex_omega*.npz, "
+                                "which does not exist: make the run that writes it first")
+    return [p for f in files for p in draw_vortex(f, out_dir, plots)]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=128)
@@ -99,13 +136,20 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0, help="the net's initial draw")
     ap.add_argument("--out", default="runs_torch/gpe2d_vortex")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
+    ap.add_argument("--plots", action="store_true",
+                    help="draw the figures from <out>/vortex_omega*.npz; run nothing")
     args = ap.parse_args(argv)
+    if args.plots:
+        viz.draw_saved(lambda plots: draw_vortices(args.out, plots))
+        return 0
 
     import torch
 
     from gpe_tpu_torch.device import resolve_device
     from gpe_tpu_torch.io import save_params
-    from gpe_tpu_torch.rotating import RotatingSpec, train_rotating_vortex
+    from gpe_tpu_torch.models.mlp import mlp_apply
+    from gpe_tpu_torch.rotating import (RotatingSpec, make_rotating_batch,
+                                        train_rotating_vortex)
 
     dev = resolve_device("cpu" if args.cpu else None)
     os.makedirs(args.out, exist_ok=True)
@@ -145,6 +189,15 @@ def main(argv=None):
                "wall_s": round(time.time() - t1, 1), "settings": settings}
         if target_src is not None:
             row["oracle_source"] = target_src
+        # the density and phase figure of the net's ψ on the n² grid
+        with torch.no_grad():
+            v = mlp_apply(res.params, make_rotating_batch(spec, dev)["x"], spec.activation)
+        npz = os.path.join(args.out, f"vortex_omega{omega:g}.npz")
+        np.savez(npz, psi=torch.complex(v[:, 0], v[:, 1]).reshape(args.n, args.n).cpu().numpy(),
+                 lb=spec.lb, ub=spec.ub, omega=omega)
+        row["plot"] = viz.draw(
+            lambda plots: draw_vortex(npz, args.out, plots),
+            f"python -m gpe_tpu_torch.experiments.gpe2d_vortex --plots --out {args.out}")
         results.append(row)
         print(json.dumps(row), flush=True)
         save_params(os.path.join(args.out, f"params_omega{omega:g}.pkl"), res.params)

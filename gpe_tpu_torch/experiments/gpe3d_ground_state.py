@@ -20,13 +20,17 @@ anchor and the wall time.
         [--width 128] [--gammas G ...] [--outer 200] [--inner 80]
         [--oracle-n 64] [--oracle-confirm-n 80] [--lm-steps 60] [--seed 0]
         [--out DIR] [--cpu]
+    python -m gpe_tpu_torch.experiments.gpe3d_ground_state --plots [--out DIR]
     CPU smoke: ... --cpu --n 16 --width 48 --outer 60 --inner 50 --gammas 0 5 \
                --oracle-n 32 --oracle-confirm-n 48
 
 Writes `<out>/summary.json` (the JAX run's keys; each rung adds `seconds`,
-the summary `seconds` and the device) and `<out>/params.pkl`. No plot
-(`viz/` is not ported). On the CUDA card unless `--cpu`; `--out` defaults
-to `runs_torch/gpe3d_ground_state`.
+the summary `seconds`, the device and `plot`) and `<out>/params.pkl`. The
+net's midplane slice ψ(x, y, z_mid) goes to `<out>/midplane_z0.npz`, from
+which `midplane_z0.png` is drawn where matplotlib is installed (`plot`
+lists it, or names the `--plots` command that draws it on another host).
+On the CUDA card unless `--cpu`; `--out` defaults to
+`runs_torch/gpe3d_ground_state`.
 """
 from __future__ import annotations
 
@@ -34,6 +38,10 @@ import argparse
 import json
 import os
 import time
+
+import numpy as np
+
+from gpe_tpu_torch import viz
 
 OUT = "runs_torch/gpe3d_ground_state"
 
@@ -48,8 +56,6 @@ def _oracle(gammas, n: int, lb: float, ub: float, cache_path: str,
     Each rung warm-starts from the previous converged state. Ramp rungs get
     Richardson order `richardson`, the final γ order `rich_final`; the
     confirm_n run at the final γ bounds the spatial discretisation error."""
-    import numpy as np
-
     from gpe_tpu_torch.validate.imaginary_time import imaginary_time_gpe
 
     gam = [float(g) for g in gammas]
@@ -113,8 +119,6 @@ def psi_errors_3d(psi_net_flat, x1, psi_ref):
     """‖ψ_net − ψ_ref‖_L2 and max|Δψ|, both states L2-normalised on the
     shared n³ grid and sign-aligned (the 3D twin of
     gpe2d_flagship.psi_errors)."""
-    import numpy as np
-
     n = x1.size
     dx = float(x1[1] - x1[0])
     u = np.asarray(psi_net_flat, np.float64).reshape(n, n, n)
@@ -125,6 +129,13 @@ def psi_errors_3d(psi_net_flat, x1, psi_ref):
         u = -u
     diff = u - ref
     return float(np.sqrt(np.sum(diff * diff) * dx ** 3)), float(np.max(np.abs(diff)))
+
+
+def draw_midplane(out_dir: str, plots) -> list:
+    """midplane_z0.png (|ψ| on the z ≈ 0 slice of the training grid) from
+    `<out_dir>/midplane_z0.npz`."""
+    d = np.load(viz.saved(os.path.join(out_dir, "midplane_z0.npz")))
+    return [plots.plot_solution_2d(d["pts"], d["u"], out_dir, "midplane_z0.png")]
 
 
 def main(argv=None):
@@ -141,9 +152,13 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=OUT)
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
+    ap.add_argument("--plots", action="store_true",
+                    help="draw the figure from <out>/midplane_z0.npz; run nothing")
     args = ap.parse_args(argv)
+    if args.plots:
+        viz.draw_saved(lambda plots: draw_midplane(args.out, plots))
+        return 0
 
-    import numpy as np
     import torch
     from scipy.interpolate import RegularGridInterpolator
 
@@ -232,6 +247,15 @@ def main(argv=None):
         "seconds": seconds,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
     }
+    # the midplane slice (z ≈ 0) of the complete solution ψ(x, y, z_mid)
+    n = args.n
+    X, Y = np.meshgrid(x1, x1, indexing="ij")
+    np.savez(os.path.join(args.out, "midplane_z0.npz"),
+             pts=np.stack([X.ravel(), Y.ravel()], -1),
+             u=psi_net.reshape(n, n, n)[:, :, n // 2].ravel())
+    summary["plot"] = viz.draw(
+        lambda plots: draw_midplane(args.out, plots),
+        f"python -m gpe_tpu_torch.experiments.gpe3d_ground_state --plots --out {args.out}")
     print(json.dumps(summary), flush=True)
     with open(os.path.join(args.out, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)

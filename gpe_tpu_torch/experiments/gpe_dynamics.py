@@ -23,13 +23,18 @@ parametric-resonance guard, which takes it as an argument
 (`resonance_guard`; the JAX driver writes 0.5 into the guard's formula).
 
     python -m gpe_tpu_torch.experiments.gpe_dynamics [--dims 2|3] [--f32] [--cpu]
+    python -m gpe_tpu_torch.experiments.gpe_dynamics --plots [--out DIR]
     CPU smoke: ... --cpu --n 64 --steps 800 --gamma 10 --gs-steps 2000
 
 Writes `<out>/summary[_3d].json` (`summary_f32[_3d].json` with --f32, which
 embeds the f64 summary of the same dims in `<out>` when there is one) with
-the JAX run's keys, `backend` the device; `--breathing-1d-sweep` writes
-`<out>/breathing_1d.json`. `--out` defaults to `runs_torch/gpe_dynamics`.
-No plot (`viz/` is not ported).
+the JAX run's keys, `backend` the device, and `plot`; `--breathing-1d-sweep`
+writes `<out>/breathing_1d.json`. `--out` defaults to
+`runs_torch/gpe_dynamics`. The two modes' traces (⟨x⟩(t) and ⟨r²⟩(t) with
+their fitted ω) go to `<out>/quench_modes.npz`, from which
+`quench_modes.png` is drawn where matplotlib is installed (`plot` lists
+it, or names the `--plots` command that draws it on another host); as in
+the JAX driver, each run of an `--out` replaces them.
 """
 from __future__ import annotations
 
@@ -39,6 +44,10 @@ import math
 import os
 import time
 
+import numpy as np
+
+from gpe_tpu_torch import viz
+
 OUT = "runs_torch/gpe_dynamics"
 KINETIC = 0.5  # c of −c·Δ
 
@@ -47,8 +56,6 @@ def fit_frequency(t, y):
     """Least-squares fit y ≈ C + A·cos(ωt) + B·sin(ωt): the FFT peak seeds ω,
     golden-section refinement on the linear fit's residual. Returns (ω,
     amplitude, rms)."""
-    import numpy as np
-
     t = np.asarray(t, np.float64)
     y = np.asarray(y, np.float64)
     yc = y - y.mean()
@@ -104,7 +111,6 @@ def breathing_sweep_1d(out_dir, gammas=(0.0, 1.0, 5.0, 20.0, 100.0, 500.0), n=51
     Thomas–Fermi limit (Menotti & Stringari, PRA 66 043610), in the linear
     response of a small quench γ → 1.05γ. dt sits below the split step's
     parametric-resonance threshold π/(c·k_max²) (0.8 of it)."""
-    import numpy as np
     import torch
 
     from gpe_tpu_torch.dynamics import evolve, ground_state
@@ -155,6 +161,31 @@ def timed_throughput(evolve_call, n_pts: int, steps: int) -> float:
     return n_pts * (k2 - k1) / (t2 - t1)
 
 
+def draw_quench_modes(out_dir: str, plots) -> list:
+    """quench_modes.png from `<out_dir>/quench_modes.npz`: the dipole's
+    ⟨x⟩(t) beside d·cos t, and the breathing mode's ⟨r²⟩(t), each titled
+    with its fitted ω."""
+    d = np.load(viz.saved(os.path.join(out_dir, "quench_modes.npz")))
+    plt = plots.plt
+    plots.use_publication_style()
+    fig, axes = plt.subplots(1, 2, figsize=(10, 3.4))
+    axes[0].plot(d["t_k"], d["cx"], lw=1.2, label=r"$\langle x\rangle(t)$")
+    axes[0].plot(d["t_k"], d["d"] * np.cos(d["t_k"]), "--", lw=1.0,
+                 label=r"$d\cos(\omega t)$ (Kohn)")
+    axes[0].set_xlabel("t")
+    axes[0].set_title(f"dipole: $\\omega$={float(d['w_dip']):.6f} (exact 1)")
+    axes[0].legend()
+    axes[1].plot(d["t_b"], d["w2"], lw=1.2, label=r"$\langle r^2\rangle(t)$")
+    axes[1].set_xlabel("t")
+    axes[1].set_title(f"breathing: $\\omega$={float(d['w_br']):.6f} (exact 2)")
+    axes[1].legend()
+    fig.tight_layout()
+    path = os.path.join(out_dir, "quench_modes.png")
+    fig.savefig(path, dpi=150)
+    plt.close(fig)
+    return [path]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=256, help="grid side (n^dims)")
@@ -179,9 +210,13 @@ def main(argv=None):
                     help="summary filename (default summary[_3d].json, "
                          "summary_f32[_3d].json with --f32)")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
+    ap.add_argument("--plots", action="store_true",
+                    help="draw the figure from <out>/quench_modes.npz; run nothing")
     args = ap.parse_args(argv)
+    if args.plots:
+        viz.draw_saved(lambda plots: draw_quench_modes(args.out, plots))
+        return 0
 
-    import numpy as np
     import torch
 
     from gpe_tpu_torch.device import resolve_device
@@ -280,6 +315,11 @@ def main(argv=None):
                 cmp["breathing_omega_f64"] = ref[f"breathing_{dim}d"]["omega_fit"]
                 cmp["breathing_omega_delta"] = abs(w_br - cmp["breathing_omega_f64"])
             summary["vs_f64_reference"] = cmp
+    np.savez(os.path.join(args.out, "quench_modes.npz"), t_k=obs_k["t"], cx=cx, d=d,
+             w_dip=w_dip, t_b=obs_b["t"], w2=w2, w_br=w_br)
+    summary["plot"] = viz.draw(
+        lambda plots: draw_quench_modes(args.out, plots),
+        f"python -m gpe_tpu_torch.experiments.gpe_dynamics --plots --out {args.out}")
     print(json.dumps(summary, indent=1), flush=True)
     with open(os.path.join(args.out, out_name), "w") as f:
         json.dump(summary, f, indent=1)

@@ -20,12 +20,16 @@ Everything runs in float64 (complex128) on the device: the CUDA card unless
 `--cpu` (the JAX driver ran on the CPU, its TPU having no complex type).
 
     python -m gpe_tpu_torch.experiments.rotating_dynamics [--n 128] [--cpu]
+    python -m gpe_tpu_torch.experiments.rotating_dynamics --plots [--out DIR]
     CPU smoke: ... --cpu --n 48 --spinup-steps 600 --record-every 200 \
                --rt-steps 200 --kohn-steps 400
 
-Writes `<out>/summary.json` (the JAX run's keys, `backend` the device, and
-`seconds` of each stage); `--out` defaults to `runs_torch/rotating_dynamics`.
-No plot (`viz/` is not ported).
+Writes `<out>/summary.json` (the JAX run's keys, `backend` the device,
+`seconds` of each stage and `plot`); `--out` defaults to
+`runs_torch/rotating_dynamics`. The nucleation path, the final |ψ|² and the
+Kohn trace go to `<out>/rotating_dynamics.npz`, from which
+`rotating_dynamics.png` is drawn where matplotlib is installed (`plot`
+lists it, or names the `--plots` command that draws it on another host).
 """
 from __future__ import annotations
 
@@ -34,6 +38,10 @@ import json
 import os
 import time
 from pathlib import Path
+
+import numpy as np
+
+from gpe_tpu_torch import viz
 
 OUT = "runs_torch/rotating_dynamics"
 REPO = Path(__file__).resolve().parents[2]
@@ -46,8 +54,6 @@ def fit_kohn_pair(t, z, omega, span=0.3, rounds=6):
     linear in (c, a, b), so golden-section refinement of ω₊ then ω₋ on the
     least-squares residual, alternating, the span halved each round.
     Returns (ω₊, ω₋, |a|, |b|, rms)."""
-    import numpy as np
-
     t = np.asarray(t, np.float64)
     z = np.asarray(z, np.complex128)
 
@@ -81,6 +87,34 @@ def fit_kohn_pair(t, z, omega, span=0.3, rounds=6):
     return wp, wm, abs(coef[1]), abs(coef[2]), float(np.sqrt(rss / t.size))
 
 
+def draw_rotating_dynamics(out_dir: str, plots) -> list:
+    """rotating_dynamics.png from `<out_dir>/rotating_dynamics.npz`: L_z
+    and the vortex count along the spin-up, the final |ψ|², and ⟨x⟩(t) of
+    the Kohn stage beside its prediction."""
+    d = np.load(viz.saved(os.path.join(out_dir, "rotating_dynamics.npz")))
+    plt = plots.plt
+    lb, omega = float(d["lb"]), float(d["omega"])
+    fig, axes = plt.subplots(1, 3, figsize=(13, 3.6))
+    axes[0].plot(d["tau_t"], d["lz"], label="$L_z$")
+    ax2 = axes[0].twinx()
+    ax2.plot(d["tau_t"], d["n_vortices"], "C1.-", label="vortices")
+    axes[0].set_xlabel(r"imaginary time $\tau$")
+    axes[0].set_ylabel(r"$\langle L_z\rangle$")
+    ax2.set_ylabel("vortex count")
+    axes[0].set_title(f"spin-up Ω=0→{omega}")
+    axes[1].imshow(d["density"].T, origin="lower", extent=[lb, -lb, lb, -lb])
+    axes[1].set_title(f"|ψ|² final ({int(d['n_vortices'][-1])} vortices)")
+    axes[2].plot(d["t"], d["cx"], label=r"$\langle x\rangle$")
+    axes[2].plot(d["t"], d["x_pred"], "k--", lw=0.8, label="prediction")
+    axes[2].set_xlabel("t")
+    axes[2].set_title(r"Kohn splitting $\omega_\pm = 1\pm\Omega$")
+    axes[2].legend()
+    path = os.path.join(out_dir, "rotating_dynamics.png")
+    fig.savefig(path, dpi=130, bbox_inches="tight")
+    plt.close(fig)
+    return [path]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=128)
@@ -99,9 +133,13 @@ def main(argv=None):
     ap.add_argument("--displace", type=float, default=0.5)
     ap.add_argument("--out", default=OUT)
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
+    ap.add_argument("--plots", action="store_true",
+                    help="draw the figure from <out>/rotating_dynamics.npz; run nothing")
     args = ap.parse_args(argv)
+    if args.plots:
+        viz.draw_saved(lambda plots: draw_rotating_dynamics(args.out, plots))
+        return 0
 
-    import numpy as np
     import torch
 
     from gpe_tpu_torch.device import resolve_device
@@ -222,6 +260,13 @@ def main(argv=None):
         "seconds": seconds,
         "wall_s": round(time.time() - t0, 1),
     }
+    np.savez(os.path.join(args.out, "rotating_dynamics.npz"), tau_t=path["tau_t"],
+             lz=path["lz"], n_vortices=path["n_vortices"],
+             density=(psi.abs() ** 2).cpu().numpy(), lb=lb, omega=args.omega, t=t, cx=cx,
+             x_pred=x_pred)
+    summary["plot"] = viz.draw(
+        lambda plots: draw_rotating_dynamics(args.out, plots),
+        f"python -m gpe_tpu_torch.experiments.rotating_dynamics --plots --out {args.out}")
     with open(os.path.join(args.out, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(json.dumps({"summary": "written", "wall_s": summary["wall_s"]}), flush=True)

@@ -6,7 +6,7 @@ branches:
     python -m gpe_tpu_torch.experiments.run <name> [--train] [--epochs N]
         [--gammas G ...] [--betas B ...] [--modes M ...] [--pretrain N]
         [--seed S] [--lm-steps N] [--lbfgs-steps N] [--out DIR] [--cpu]
-        [--list]
+        [--plots] [--list]
 
 - `plpinn`: train-or-load the bundle `<out>/<name>/bundle.pkl` (`--train`
   forces a fresh run), run `train_plpinn` with the config's `rebase` and
@@ -64,7 +64,7 @@ branches:
   against the float64 FDM oracle; one JSON line with the JAX record's
   keys (`experiment`, `gamma`, `train_mu_range`, `heldout`,
   `interp_max_mu_err`, `interp_max_psi_l2`, `extrap_max_mu_err`,
-  `wall_s`) and `plot`, which says that no plot was written.
+  `wall_s`) and `plot`.
 
 Every record adds `seconds` (the wall time of each part) and, on the card,
 `launches`: the f32 K1 and K2 launches of what it records
@@ -77,10 +77,23 @@ their run mode (K3: `collocation_sums_runs`, `collocation_grads_runs`).
 `--lm-steps` defaults to each branch's JAX value (120 for `plpinn` and
 `helmholtz`, 60 for `deflation`). `--out` defaults to `runs_torch`; the port never writes
 under `runs/`, which holds the JAX package's artifacts. The run is on the CUDA card unless
-`--cpu` is given. A failing oracle fails the run. Plots are left out (the
-JAX runner's `viz/` suite is not ported). Configurations of the JAX
-registry the port cannot build yet, and the other algorithms, raise
+`--cpu` is given. A failing oracle fails the run. Configurations of the
+JAX registry the port cannot build yet, and the other algorithms, raise
 NotImplementedError naming what they wait for.
+
+Figures (the JAX runner's): `plpinn` draws `mu_vs_gamma.png`,
+`loss_history.png`, `epochs_heatmap.png` and, for a 1D spec,
+`wavefunctions.png` (the net of about six γ rungs a mode, evaluated on the
+run's device: `wavefunctions_from_bundle`); `beta_sweep` `mu_vs_beta.png`,
+`epochs_vs_beta_heatmap.png`, `loss_history.png`; `cross_potential`
+`mode0_cross_potential.png`; `optimizer_sweep` `optimizer_comparison.png`
+and `deeponet` `deeponet_heldout.png`, each drawn from the arrays the run
+saves in `<out>/<name>/<figure>.npz`. Each record of those branches has
+`plot`: the files written, or, where the host has no matplotlib (the
+card's), the command that draws them. `--plots` trains nothing: it draws
+the figures from the saved bundle(s) or `.npz` files (an error names a
+missing one), builds no process group, and prints one JSON line
+(`experiment`, `plot`).
 """
 from __future__ import annotations
 
@@ -91,11 +104,121 @@ import os
 import sys
 import time
 
+import numpy as np
+
+from gpe_tpu_torch import viz
 from gpe_tpu_torch.kernels._common import LaunchCounter
 
 ORACLE_GRID = 384
 ORACLE_TAU = 2e-3
 ORACLE_RICHARDSON = 2
+
+
+def _plots_command(name: str, out: str) -> str:
+    return f"python -m gpe_tpu_torch.experiments.run {name} --plots --out {out} [--cpu]"
+
+
+def wavefunctions_from_bundle(cfg, bundle, device):
+    """The wavefunction figure's arrays (the JAX runner's
+    `_plot_wavefunctions_from_bundle`): (x, {mode: {γ: u}}) as numpy, u
+    the complete solution of the best params of about six γ rungs a mode
+    on `make_batch`'s base, evaluated on `device`; None for a spec that is
+    not 1D or a bundle without params."""
+    import torch
+
+    from gpe_tpu_torch.models import mlp
+    from gpe_tpu_torch.models.ansatz import box_sine_factor
+    from gpe_tpu_torch.train.problem import make_batch
+
+    spec = cfg.spec
+    if spec.dim != 1 or not bundle["params_by_mode"]:
+        return None
+    const = bundle["constant_history"]
+    u_by, b = {}, None
+    for mode, by_g in bundle["params_by_mode"].items():
+        if not by_g:
+            continue
+        b = make_batch(spec, mode, device=device)
+        scale = cfg.perturb_const / const[mode] if spec.use_perturbation else 1.0
+        gs = sorted(by_g)
+        u_by[mode] = {}
+        for g in gs[::max(1, len(gs) // 6)]:
+            p = mlp.params_from_numpy(by_g[g], device=device, dtype=b["x"].dtype)
+            with torch.no_grad():
+                v = mlp.mlp_apply(p, b["x"], spec.activation) * scale
+                if spec.hard_bc:
+                    v = v * box_sine_factor(spec.lb, spec.ub)(b["x"]).value
+                if spec.use_perturbation:
+                    v = b["base_val"] + v
+            u_by[mode][g] = v.cpu().numpy()
+    if not u_by:
+        return None
+    return b["x"][:, 0].cpu().numpy(), u_by
+
+
+def bundle_figures(cfg, bundles: dict, out_dir: str, device):
+    """draw_fn(plots) of a bundle branch's figures: `bundles` maps
+    "bundle" (plpinn, beta_sweep) or each cross-potential family to its
+    loaded bundle; returns the paths written."""
+    def draw_fn(plots):
+        plots.use_publication_style()
+        if cfg.algorithm == "cross_potential":
+            loss = {}
+            for label, b in bundles.items():
+                g0 = sorted(b["training_history"][0])[0]
+                loss[label] = b["training_history"][0][g0]["loss"]
+            return [plots.plot_mode0_cross_potential(loss, out_dir, smooth=9)]
+        bundle = bundles["bundle"]
+        if cfg.algorithm == "beta_sweep":
+            return [plots.plot_mu_vs_gamma(bundle["mu_table"], out_dir, "mu_vs_beta.png",
+                                           every=1, xlabel="β"),
+                    plots.plot_epochs_heatmap(bundle["epochs_history"], out_dir,
+                                              "epochs_vs_beta_heatmap.png", xlabel="β"),
+                    plots.plot_loss_history(bundle["training_history"], out_dir)]
+        paths = [plots.plot_mu_vs_gamma(bundle["mu_table"], out_dir),
+                 plots.plot_loss_history(bundle["training_history"], out_dir),
+                 plots.plot_epochs_heatmap(bundle["epochs_history"], out_dir)]
+        wf = wavefunctions_from_bundle(cfg, bundle, device)
+        if wf is not None:
+            paths.append(plots.plot_wavefunctions(*wf, out_dir))
+        return paths
+    return draw_fn
+
+
+def draw_optimizer_comparison(out_dir: str, plots) -> list:
+    """optimizer_comparison.png from the sweep's loss histories saved in
+    `<out_dir>/optimizer_comparison.npz` (the last η's, one curve per
+    optimizer in the sweep's order)."""
+    d = np.load(viz.saved(os.path.join(out_dir, "optimizer_comparison.npz")))
+    plots.use_publication_style()
+    return [plots.plot_method_comparison({str(n): d[f"loss_{n}"] for n in d["names"]},
+                                         out_dir, "optimizer_comparison.png")]
+
+
+def draw_deeponet_heldout(out_dir: str, plots) -> list:
+    """deeponet_heldout.png from the held-out evaluation's arrays saved in
+    `<out_dir>/deeponet_heldout.npz`: μ against β beside the FDM oracle,
+    and |ψ| of the first, middle and last held-out β."""
+    d = np.load(viz.saved(os.path.join(out_dir, "deeponet_heldout.npz")))
+    plt = plots.plt
+    plots.use_publication_style()
+    beta, u_pred, x = d["beta"], d["u_pred"], d["x"]
+    fig, axes = plt.subplots(1, 2, figsize=(11, 4))
+    axes[0].plot(beta, d["mu_ref"], "k-", label="FDM oracle")
+    axes[0].plot(beta, d["mu_pred"], "o", ms=5, label="DeepONet")
+    axes[0].set_xlabel(r"$\beta$"); axes[0].set_ylabel(r"$\mu$")
+    axes[0].legend(); axes[0].set_title("held-out potentials")
+    for i in (0, len(beta) // 2, len(beta) - 1):
+        dxg = x[1] - x[0]
+        psi = u_pred[i] / np.sqrt(np.sum(u_pred[i] ** 2) * dxg)
+        axes[1].plot(x, np.abs(psi), label=rf"$\beta$={beta[i]:.2f}")
+    axes[1].set_xlabel("x"); axes[1].set_ylabel(r"$|\psi|$")
+    axes[1].legend()
+    fig.tight_layout()
+    path = os.path.join(out_dir, "deeponet_heldout.png")
+    fig.savefig(path, dpi=200)
+    plt.close(fig)
+    return [path]
 
 
 def _write_summary(out_dir, records):
@@ -110,8 +233,6 @@ def oracle_mu(spec, gamma: float, device=None) -> float:
     """μ of the 2D harmonic trap of `spec` at γ by the imaginary-time oracle
     at the runner's settings (384² grid over [lb, ub]², τ 2e-3, Richardson
     order 2), in float64 on `device`."""
-    import numpy as np
-
     from gpe_tpu_torch.validate.imaginary_time import imaginary_time_gpe
 
     a = dict(spec.potential_kwargs).get("a", 1.0)
@@ -179,9 +300,10 @@ def _run_plpinn(cfg, args, dev, out_dir, emit, mesh=None):
     if args.train or not os.path.exists(bundle_path):
         res = _train(cfg, cfg.spec, cfg.modes, dev, args.lm_steps, mesh)
         polished, seconds = res.polished, dict(res.seconds)
-        if mesh is not None and mesh.rank != 0:
-            return
-        save_bundle(bundle_path, res, cfg.spec)
+        if mesh is None or mesh.rank == 0:
+            save_bundle(bundle_path, res, cfg.spec)
+    if mesh is not None and mesh.rank != 0:
+        return
     bundle = load_bundle(bundle_path)
     extra = {}
     if mesh is not None:
@@ -208,6 +330,8 @@ def _run_plpinn(cfg, args, dev, out_dir, emit, mesh=None):
         record["seconds"] = seconds
     if dev.type == "cuda":
         record["launches"] = launches.since()
+    record["plot"] = viz.draw(bundle_figures(cfg, {"bundle": bundle}, out_dir, dev),
+                              _plots_command(cfg.name, args.out))
     emit(record)
 
 
@@ -249,6 +373,7 @@ def _run_cross_potential(cfg, args, dev, out_dir, emit):
     from gpe_tpu_torch.io import load_bundle, save_bundle
 
     launches = LaunchCounter()
+    bundles, records = {}, []
     for label, fspec in cross_potential_families(cfg.spec).items():
         bpath = os.path.join(out_dir, f"{label}_bundle.pkl")
         launches.mark()
@@ -257,7 +382,7 @@ def _run_cross_potential(cfg, args, dev, out_dir, emit):
             res = _train(cfg, fspec, (0,), dev, args.lm_steps)
             seconds = dict(res.seconds)
             save_bundle(bpath, res, fspec)
-        b = load_bundle(bpath)
+        b = bundles[label] = load_bundle(bpath)
         g0 = sorted(b["training_history"][0])[0]
         record = {"potential": label, "mu_final": b["mu_table"][0][-1],
                   "gamma0_final_loss": float(b["training_history"][0][g0]["loss"][-1])}
@@ -265,7 +390,11 @@ def _run_cross_potential(cfg, args, dev, out_dir, emit):
             record["seconds"] = seconds
         if dev.type == "cuda":
             record["launches"] = launches.since()
-        emit(record)
+        records.append(record)
+    plot = viz.draw(bundle_figures(cfg, bundles, out_dir, dev),
+                    _plots_command(cfg.name, args.out))
+    for record in records:
+        emit({**record, "plot": plot})
 
 
 # the reference's success thresholds of the multi-seed protocol
@@ -358,9 +487,12 @@ def _run_beta_sweep(cfg, args, dev, out_dir, emit):
         seconds = res.seconds
         save_bundle(bundle_path, res, cfg.spec)
     bundle = load_bundle(bundle_path)
-    emit(_record({"experiment": cfg.name,
-                  "mu_table_tail": {str(m): v[-1] for m, v in bundle["mu_table"].items()},
-                  "wall_s": round(time.time() - t0, 1)}, seconds, launches, dev))
+    record = _record({"experiment": cfg.name,
+                      "mu_table_tail": {str(m): v[-1] for m, v in bundle["mu_table"].items()},
+                      "wall_s": round(time.time() - t0, 1)}, seconds, launches, dev)
+    record["plot"] = viz.draw(bundle_figures(cfg, {"bundle": bundle}, out_dir, dev),
+                              _plots_command(cfg.name, args.out))
+    emit(record)
 
 
 def _run_p_ramp(cfg, dev, emit):
@@ -411,19 +543,28 @@ def _run_relobralo(cfg, dev, emit):
                      {"fit": time.perf_counter() - t0}, launches, dev))
 
 
-def _run_optimizer_sweep(cfg, dev, emit):
+def _run_optimizer_sweep(cfg, args, dev, out_dir, emit):
     from gpe_tpu_torch.train.curriculum import train_curriculum
 
     launches = LaunchCounter()
+    records, losses = [], {}
     for name in cfg.optimizers:
         launches.mark()
         res = train_curriculum(cfg.spec, cfg.gamma_values, mode=cfg.modes[0],
                                epochs=cfg.epochs, lr=cfg.lr, seed=cfg.seed,
                                optimizer=name, verbose=True, device=dev)
         fit_s = sum(res.seconds.values())
+        losses[f"loss_{name}"] = np.asarray(res.history_by_eta[max(res.history_by_eta)]["loss"])
         record = {"optimizer": name, "mu_table": [[e, m] for e, m in res.mu_table],
                   "ms_per_step": 1e3 * fit_s / sum(res.epochs_by_eta.values())}
-        emit(_record(record, {str(e): t for e, t in res.seconds.items()}, launches, dev))
+        records.append(_record(record, {str(e): t for e, t in res.seconds.items()},
+                               launches, dev))
+    np.savez(os.path.join(out_dir, "optimizer_comparison.npz"),
+             names=np.asarray(cfg.optimizers), **losses)
+    plot = viz.draw(lambda plots: draw_optimizer_comparison(out_dir, plots),
+                    _plots_command(cfg.name, args.out))
+    for record in records:
+        emit({**record, "plot": plot})
 
 
 def _run_helmholtz(cfg, args, dev, emit):
@@ -446,7 +587,7 @@ def _run_helmholtz(cfg, args, dev, emit):
 DEEPONET_TEST_BETAS = [0.45, 0.6, 0.77, 0.93, 1.11, 1.34, 1.58, 1.83, 2.1]
 
 
-def _run_deeponet(cfg, args, dev, emit):
+def _run_deeponet(cfg, args, dev, out_dir, emit):
     from gpe_tpu_torch.deeponet.model import (DeepONetSpec, evaluate_deeponet,
                                               train_deeponet)
 
@@ -460,8 +601,11 @@ def _run_deeponet(cfg, args, dev, emit):
                          pretrain_epochs=3000 if args.pretrain is None else args.pretrain)
     seconds = {"train": time.perf_counter() - t1}
     t1 = time.perf_counter()
-    rows, _, _ = evaluate_deeponet(dspec, res.params, DEEPONET_TEST_BETAS, gamma)
+    rows, u_pred, x = evaluate_deeponet(dspec, res.params, DEEPONET_TEST_BETAS, gamma)
     seconds["heldout"] = time.perf_counter() - t1
+    np.savez(os.path.join(out_dir, "deeponet_heldout.npz"), beta=[r["beta"] for r in rows],
+             mu_ref=[r["mu_ref"] for r in rows], mu_pred=[r["mu_pred"] for r in rows],
+             u_pred=u_pred, x=x)
     interp = [r for r in rows if 0.5 <= r["beta"] <= 2.0]
     extrap = [r for r in rows if not (0.5 <= r["beta"] <= 2.0)]
     emit(_record({"experiment": cfg.name, "gamma": gamma,
@@ -474,8 +618,28 @@ def _run_deeponet(cfg, args, dev, emit):
                   "interp_max_psi_l2": max(r["psi_l2_err"] for r in interp),
                   "extrap_max_mu_err": (max(r["mu_abs_err"] for r in extrap)
                                         if extrap else None),
-                  "plot": "not written (viz/ is not ported)",
+                  "plot": viz.draw(lambda plots: draw_deeponet_heldout(out_dir, plots),
+                                   _plots_command(cfg.name, args.out)),
                   "wall_s": round(time.time() - t0, 1)}, seconds, launches, dev))
+
+
+def saved_figures(cfg, dev, out_dir):
+    """`--plots`: draw_fn(plots) of `cfg`'s branch, drawing from what its
+    run saved in `out_dir`."""
+    from gpe_tpu_torch.io import load_bundle
+
+    if cfg.algorithm in ("plpinn", "beta_sweep"):
+        bundles = {"bundle": load_bundle(viz.saved(os.path.join(out_dir, "bundle.pkl")))}
+    elif cfg.algorithm == "cross_potential":
+        bundles = {label: load_bundle(viz.saved(os.path.join(out_dir, f"{label}_bundle.pkl")))
+                   for label in cross_potential_families(cfg.spec)}
+    elif cfg.algorithm == "optimizer_sweep":
+        return lambda plots: draw_optimizer_comparison(out_dir, plots)
+    elif cfg.algorithm == "deeponet":
+        return lambda plots: draw_deeponet_heldout(out_dir, plots)
+    else:
+        raise ValueError(f"experiment {cfg.name!r} ({cfg.algorithm}) draws no figure")
+    return bundle_figures(cfg, bundles, out_dir, dev)
 
 
 BRANCHES = ("plpinn", "fit", "cross_potential", "compare", "two_stage", "beta_sweep",
@@ -501,6 +665,9 @@ def main(argv=None):
     ap.add_argument("--lbfgs-steps", type=int, default=None,
                     help="helmholtz: L-BFGS steps after Adam (default 100)")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
+    ap.add_argument("--plots", action="store_true",
+                    help="draw the figures from the saved bundle(s) or .npz files of "
+                         "<out>/<name>; train nothing")
     args = ap.parse_args(argv)
 
     from gpe_tpu_torch.experiments.configs import EXPERIMENTS, WAITING
@@ -533,12 +700,15 @@ def main(argv=None):
         raise NotImplementedError(f"algorithm {cfg.algorithm!r} is not ported yet; "
                                   "see gpe_tpu.experiments.run")
     dev = resolve_device("cpu" if args.cpu else None)
+    out_dir = os.path.join(args.out, cfg.name)
+    if args.plots:
+        viz.draw_saved(saved_figures(cfg, dev, out_dir), experiment=cfg.name)
+        return 0
     mesh = _mesh(args.cpu) if cfg.use_mesh else None
     if mesh is not None:
         dev = mesh.device
     lead = mesh is None or mesh.rank == 0
 
-    out_dir = os.path.join(args.out, cfg.name)
     os.makedirs(out_dir, exist_ok=True)
     records = []
 
@@ -564,11 +734,11 @@ def main(argv=None):
     elif cfg.algorithm == "deflation":
         _run_deflation(cfg, args, dev, emit)
     elif cfg.algorithm == "optimizer_sweep":
-        _run_optimizer_sweep(cfg, dev, emit)
+        _run_optimizer_sweep(cfg, args, dev, out_dir, emit)
     elif cfg.algorithm == "helmholtz":
         _run_helmholtz(cfg, args, dev, emit)
     elif cfg.algorithm == "deeponet":
-        _run_deeponet(cfg, args, dev, emit)
+        _run_deeponet(cfg, args, dev, out_dir, emit)
     else:
         _run_relobralo(cfg, dev, emit)
     if lead:

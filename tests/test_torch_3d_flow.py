@@ -135,7 +135,8 @@ def test_3d_driver_cpu_smoke(tmp_path, monkeypatch, capsys):
     jax_keys = {"config", "ramp", "mu_final", "mu_grid_final", "mu_ref_final",
                 "abs_err_final", "abs_err_grid_final", "oracle_grid_err_bound",
                 "mu_tf_final", "psi_l2_err", "psi_max_err", "wall_s"}
-    assert set(rec) == jax_keys | {"seconds", "device"}
+    assert set(rec) == jax_keys | {"seconds", "device", "plot"}
+    assert rec["plot"] == ["midplane_z0.png"]
     assert [r["gamma"] for r in rec["ramp"]] == [0.0, 5.0]
     assert (tmp_path / "params.pkl").exists() and (tmp_path / "oracle_cache.npz").exists()
     cache = np.load(tmp_path / "oracle_cache.npz")

@@ -144,17 +144,20 @@ def test_train_and_evaluate_match_jax_from_carried_params(monkeypatch):
 
 def test_runner_deeponet_branch_on_the_cpu(tmp_path, capsys):
     """deeponet_harmonic through the runner at full width, 5 + 5 steps: the
-    JAX record's keys (plus seconds and the plot note), the nine held-out
-    β, and the FDM oracle μ of JAX's on the same grid."""
+    JAX record's keys (plus seconds and the plot, drawn from the saved
+    held-out arrays), the nine held-out β, and the FDM oracle μ of JAX's
+    on the same grid."""
     assert run.main(["deeponet_harmonic", "--cpu", "--train", "--epochs", "5",
                      "--pretrain", "5", "--out", str(tmp_path)]) == 0
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert set(rec) == JAX_RECORD | {"seconds", "plot"}
-    assert set(rec["seconds"]) == {"train", "heldout"} and "not" in rec["plot"]
+    assert set(rec["seconds"]) == {"train", "heldout"}
+    assert rec["plot"] == ["deeponet_heldout.png"]
     assert [r["beta"] for r in rec["heldout"]] == run.DEEPONET_TEST_BETAS
     assert rec["gamma"] == 1.0 and rec["extrap_max_mu_err"] is not None
     assert json.loads((tmp_path / "deeponet_harmonic" / "summary.json").read_text()) == rec
-    assert not list((tmp_path / "deeponet_harmonic").glob("*.png"))
+    assert sorted(p.name for p in (tmp_path / "deeponet_harmonic").glob("deeponet_heldout.*")) \
+        == ["deeponet_heldout.npz", "deeponet_heldout.png"]
     spec = jd.DeepONetSpec(p=3.0)
     x = np.asarray(jd.make_potential_family_batch(spec, 1, betas=[1.0])["x"][:, 0],
                    np.float64)

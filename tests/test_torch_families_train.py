@@ -383,7 +383,8 @@ def test_run_main_fit_branch_on_the_cpu(name, tmp_path, monkeypatch, capsys):
 
 def test_run_main_cross_potential_branch_on_the_cpu(tmp_path, monkeypatch, capsys):
     """One record per family with the JAX record's keys (plus `seconds`
-    when it trained), the four bundles, and a second call that loads them."""
+    when it trained, and `plot`, the figure over the four families), the
+    four bundles, and a second call that loads them."""
     monkeypatch.setitem(EXPERIMENTS, "mode0_all_potentials", _tiny("mode0_all_potentials"))
     argv = ["mode0_all_potentials", "--cpu", "--epochs", "5", "--pretrain", "5",
             "--gammas", "0", "1", "--out", str(tmp_path)]
@@ -392,7 +393,8 @@ def test_run_main_cross_potential_branch_on_the_cpu(tmp_path, monkeypatch, capsy
             if s.startswith("{")]
     assert [r["potential"] for r in recs] == ["harmonic", "box", "gravity_well", "gaussian"]
     for r in recs:
-        assert set(r) == {"potential", "mu_final", "gamma0_final_loss", "seconds"}
+        assert set(r) == {"potential", "mu_final", "gamma0_final_loss", "seconds", "plot"}
+        assert r["plot"] == ["mode0_cross_potential.png"]
         assert r["mu_final"][0] == 1.0 and math.isfinite(r["mu_final"][1])
         assert (tmp_path / "mode0_all_potentials" / f"{r['potential']}_bundle.pkl").exists()
     assert run.main(argv) == 0

@@ -136,7 +136,8 @@ def test_flagship_main_at_tiny_size(tmp_path, monkeypatch, capsys):
     jax_keys = {"config", "n_points", "gamma", "mu_net", "mu_grid", "mu_ref", "abs_err_net",
                 "abs_err_grid", "psi_l2_err", "psi_max_err", "target", "total_wall_s"}
     s = rec["summary"]
-    assert set(s) == jax_keys | {"seconds", "device"} and s["n_points"] == 256
+    assert set(s) == jax_keys | {"seconds", "device", "plot"} and s["n_points"] == 256
+    assert s["plot"] == ["flagship_solution.png"]
     assert [r["gamma"] for r in rec["ramp"]] == [2.0, 5.0]
     assert all({"gamma", "mu_net", "mu_grid", "pde_loss", "wall_s"} <= set(r)
                for r in rec["ramp"])

@@ -303,7 +303,8 @@ def test_runner_helmholtz_and_optimizer_sweep_branches(tmp_path, monkeypatch, ca
              if x.startswith("{")]
     assert [r["optimizer"] for r in lines] == ["adahessian", "shampoo"]
     for r in lines:
-        assert set(r) == {"optimizer", "mu_table", "ms_per_step", "seconds"}
+        assert set(r) == {"optimizer", "mu_table", "ms_per_step", "seconds", "plot"}
+        assert r["plot"] == ["optimizer_comparison.png"]
         assert [e for e, _ in r["mu_table"]] == [0.0, 10.0]
         assert all(math.isfinite(m) for _, m in r["mu_table"]) and r["ms_per_step"] > 0
     summary = json.loads((tmp_path / "different_optimizers_harmonic" / "summary.json").read_text())

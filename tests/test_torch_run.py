@@ -57,7 +57,9 @@ def test_run_main_linear_1d_sanity_on_the_cpu(tmp_path, monkeypatch, capsys):
     argv = ["linear_1d_sanity", "--cpu", "--epochs", "30", "--pretrain", "40"]
     assert run.main(argv + ["--train"]) == 0
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert JAX_RECORD <= set(rec) <= JAX_RECORD | {"seconds"}
+    assert JAX_RECORD | {"plot"} <= set(rec) <= JAX_RECORD | {"seconds", "plot"}
+    assert rec["plot"] == ["mu_vs_gamma.png", "loss_history.png", "epochs_heatmap.png",
+                           "wavefunctions.png"]
     assert rec["experiment"] == "linear_1d_sanity"
     gamma, mu = rec["mu_table_tail"]["0"]
     assert gamma == 0.0 and abs(mu - 0.5) < 2e-2
@@ -67,7 +69,8 @@ def test_run_main_linear_1d_sanity_on_the_cpu(tmp_path, monkeypatch, capsys):
     assert (out / "bundle.pkl").exists() and not (tmp_path / "runs").exists()
     assert run.main(argv) == 0                      # loads the bundle, no training
     again = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert set(again) == JAX_RECORD and again["mu_table_tail"] == rec["mu_table_tail"]
+    assert set(again) == JAX_RECORD | {"plot"}
+    assert again["mu_table_tail"] == rec["mu_table_tail"]
     assert _tree(ROOT / "runs") == runs_before
 
 
@@ -95,7 +98,7 @@ def test_run_main_scores_2d_against_the_oracle(tmp_path, monkeypatch, capsys):
                      "--pretrain", "30", "--gammas", "0", "5", "--lm-steps", "2",
                      "--out", str(tmp_path)]) == 0
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert set(rec) == JAX_RECORD | {"lm_polished", "seconds"}
+    assert set(rec) == JAX_RECORD | {"lm_polished", "seconds", "plot"}
     pol = rec["lm_polished"]["0"]
     assert set(pol) == {"gamma", "mu", "steps", "scale", "mu_ref", "mu_abs_err"}
     assert pol["gamma"] == 5.0 and pol["steps"] == 2

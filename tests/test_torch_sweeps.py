@@ -220,7 +220,8 @@ def test_run_main_continuation_branches_on_the_cpu(name, tmp_path, monkeypatch,
             str(tmp_path)] + RUN_ARGS[name]
     assert run.main(argv + ["--train"]) == 0
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert set(rec) == JAX_RECORDS[cfg.algorithm] | {"seconds"}
+    plot = {"plot"} if cfg.algorithm == "beta_sweep" else set()
+    assert set(rec) == JAX_RECORDS[cfg.algorithm] | {"seconds"} | plot
     assert rec["experiment"] == name
     assert json.loads((tmp_path / name / "summary.json").read_text()) == rec
     if cfg.algorithm == "two_stage":
@@ -236,7 +237,7 @@ def test_run_main_continuation_branches_on_the_cpu(name, tmp_path, monkeypatch,
         mus = [mu]
         assert run.main(argv) == 0                  # loads the bundle
         again = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-        assert set(again) == JAX_RECORDS["beta_sweep"]
+        assert set(again) == JAX_RECORDS["beta_sweep"] | plot
         assert again["mu_table_tail"] == rec["mu_table_tail"]
     assert all(math.isfinite(m) for m in mus)
 
