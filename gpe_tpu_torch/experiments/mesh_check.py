@@ -17,11 +17,12 @@ or relaxed, over a few steps), `fit` (`fit(mesh=)` on the fused or the plain rou
 `train_multiple_runs` with `mesh=`), `runner` (`experiments/run.py`'s
 main on every rank), `sharded` (`dynamics/sharded.py:evolve_sharded`, the
 grid in slabs, the port of the JAX package's dry-run stage 6) and
-`all_to_all` (`ops/collectives.all_to_all` on every pair of axes).
+`all_to_all` (`ops/collectives.all_to_all` on every pair of axes) and
+`teardown` (no collective: when each rank leaves the spawn).
 chip_smoke.py runs them on the card at full width over gloo ranks on one
 card; tests/test_torch_mesh*.py and test_torch_sharded.py on the CPU.
-Every case but `all_to_all` records the K1/K2/K3 launches of its rank (0
-on the CPU).
+Every case but `all_to_all` and `teardown` records the K1/K2/K3 launches
+of its rank (0 on the CPU).
 """
 from __future__ import annotations
 
@@ -374,11 +375,30 @@ def case_all_to_all(mesh, shape, seed: int = 0):
     return res
 
 
+def case_teardown(mesh, delays, log: str):
+    """No collective: sleep this rank's `delays[rank]` s, then make the
+    spawn's `destroy_process_group` write its clock to `<log>/destroy<rank>`,
+    so the caller sees when each rank tore the group down against when the
+    slowest returned ("returned")."""
+    import torch.distributed as dist
+
+    time.sleep(delays[mesh.rank])
+    destroy = dist.destroy_process_group
+
+    def logged(*a, **kw):
+        with open(os.path.join(log, f"destroy{mesh.rank}"), "w") as f:
+            f.write(repr(time.time()))
+        return destroy(*a, **kw)
+
+    dist.destroy_process_group = logged
+    return {"rank": mesh.rank, "size": mesh.size, "returned": time.time()}
+
+
 CASES = {"vag": case_vag, "fit": case_fit, "ensemble": case_ensemble,
          "packed": case_packed, "steps": case_steps,
          "ensemble_step": case_ensemble_step, "plpinn": case_plpinn,
          "compare": case_compare, "runner": case_runner, "sharded": case_sharded,
-         "all_to_all": case_all_to_all}
+         "all_to_all": case_all_to_all, "teardown": case_teardown}
 
 
 def _rank_cases(mesh, cases, out: str):

@@ -292,10 +292,12 @@ def spawn(fn: Callable, nprocs: int, *args, backend: str = "gloo",
     """Run fn(mesh, *args) on `nprocs` ranks of a new group
     (torch.multiprocessing.spawn, a file:// store in a temporary
     directory), rank r on cuda:(r % device_count) or on `device`. `fn` must
-    be importable by module path; a rank's exception is raised here.
-    Returns with no process of its own left running: multiprocessing's
-    resource tracker, which the spawn starts for the ranks, is stopped once
-    they have exited (else it outlives this process by a moment). That
+    be importable by module path; a rank's exception is raised here. The
+    ranks meet in a barrier after fn, so none tears the group down while a
+    peer is still joining it or running fn. Returns with no process of its
+    own left running: multiprocessing's resource tracker, which the spawn
+    starts for the ranks, is stopped once they have exited (else it
+    outlives this process by a moment). That
     holds too where a tracker was recorded but had died: the spawn then
     reaps it and starts a new one, which is the spawn's own. A tracker that
     was running before the call is left running."""
@@ -331,5 +333,10 @@ def _rank_main(rank, fn, nprocs, backend, init, device, args):
     dist.init_process_group(backend, init_method=init, world_size=nprocs, rank=rank)
     try:
         fn(make_mesh(nprocs, device=device), *args)
+        # No rank closes its connections before every rank has finished
+        # fn: a rank whose fn runs no collective would otherwise tear its
+        # pairs down while a peer is still in gloo's connectFullMesh, which
+        # then fails with "Connection closed by peer".
+        dist.barrier()
     finally:
         dist.destroy_process_group()

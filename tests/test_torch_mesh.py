@@ -380,3 +380,22 @@ def test_spawn_stops_a_tracker_it_relaunched():
     after = _children()
     assert not _added(before, after), f"added {_added(before, after)}"
     assert tracker._pid is None
+
+
+@pytest.mark.parametrize("nprocs,slow", [(2, 1), (2, 0), (3, 2), (3, 0)])
+def test_spawns_back_to_back_tear_down_after_the_slowest_rank(tmp_path, nprocs, slow):
+    """Spawns back to back whose ranks run no collective, one rank 0.5 s
+    slower than the rest: every rank returns its own result, and none
+    tears the group down before the slowest has returned. (Without the
+    spawn's barrier a fast rank closed its connections at once, and a peer
+    still in gloo's connectFullMesh failed with "Connection closed by
+    peer": 7 of 480 such spawns, eight processes side by side.)"""
+    delays = [0.0] * nprocs
+    delays[slow] = 0.5
+    ranks = run_cases([("t", "teardown", dict(delays=delays, log=str(tmp_path)))],
+                      nprocs=nprocs, backend="gloo", device="cpu")
+    assert [(int(r["t/rank"]), int(r["t/size"])) for r in ranks] == \
+        [(r, nprocs) for r in range(nprocs)]
+    returned = max(float(r["t/returned"]) for r in ranks)
+    torn = [float((tmp_path / f"destroy{r}").read_text()) for r in range(nprocs)]
+    assert min(torn) >= returned, (torn, returned)
